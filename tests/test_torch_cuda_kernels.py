@@ -1,0 +1,80 @@
+"""Kernels K1 and K2 on a CUDA card against their plain PyTorch versions.
+
+These need the card: on the CPU they skip. On a machine with one, run
+``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
+"""
+import pytest
+import torch
+
+from npore_tpu.config import AlignConfig
+from npore_tpu.golden.align import align as golden_align
+from npore_tpu_torch.engine import windows as tw
+from npore_tpu_torch.engine.realigner import Realigner
+from npore_tpu_torch.ops import band_dp as tdp
+from npore_tpu_torch.ops import dp_cuda, tb_cuda
+from npore_tpu_torch.ops.tables import tables_from_numpy
+from npore_tpu_torch.ops.traceback import traceback
+
+from test_torch_dp import SETS, synthetic_cases, windows_of
+from test_torch_engine import _items
+
+pytestmark = pytest.mark.cuda
+
+CASES = {name: (cases, cfg) for name, (cases, cfg) in SETS.items()}
+CASES["synthetic"] = (synthetic_cases(), AlignConfig())
+
+
+@pytest.fixture(scope="module")
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _group(name, device):
+    cases, cfg = CASES[name]
+    wins = windows_of(cases, cfg)
+    buf, layout = tw.pack_group(wins, max(w.b_rows for w in wins), cfg.max_n)
+    return wins, tw.tensor_views(torch.from_numpy(buf).to(device), layout), cfg
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_k1_k2_equal_plain(cuda_device, score_matrices, name):
+    sub_scores, np_scores, _, _ = score_matrices
+    wins, batch, cfg = _group(name, cuda_device)
+    tabs = tables_from_numpy(sub_scores, np_scores, cfg, cuda_device)
+    n1, n2 = dp_cuda.launches, tb_cuda.launches
+    packed = dp_cuda.band_dp(batch, tabs, cfg)
+    torch.cuda.synchronize()
+    assert dp_cuda.launches == n1 + 1
+    assert torch.equal(packed,
+                       tdp.pack_planes(*tdp.window_dp(batch, tabs, cfg)))
+    got = tb_cuda.traceback(packed, batch, cfg)
+    torch.cuda.synchronize()
+    assert tb_cuda.launches == n2 + 1
+    assert torch.equal(got.buf, traceback(packed, batch, cfg).buf)
+    assert int(got.meta[:, 1].sum()) == 0
+
+
+def test_wrappers_reject_bad_inputs(cuda_device, score_matrices):
+    sub_scores, np_scores, _, _ = score_matrices
+    wins, batch, cfg = _group("toys", cuda_device)
+    tabs = tables_from_numpy(sub_scores, np_scores, cfg, cuda_device)
+    bad = dict(batch, seqbuf=batch["seqbuf"].to(torch.int32))
+    with pytest.raises(ValueError):
+        dp_cuda.band_dp(bad, tabs, cfg)
+    packed = dp_cuda.band_dp(batch, tabs, cfg)
+    with pytest.raises(ValueError):
+        tb_cuda.traceback(packed[:, :, :32].contiguous(), batch, cfg)
+
+
+def test_cuda_engine_matches_golden(cuda_device, score_matrices):
+    sub_scores, np_scores, _, _ = score_matrices
+    cases, cfg = CASES["synthetic"]
+    items = _items(cases)
+    eng = Realigner(sub_scores, np_scores, cfg, engine="cuda")
+    got = eng.align_batch(items)
+    for it, g in zip(items, got):
+        assert g == golden_align(it.ref, it.seq, it.cigar, sub_scores,
+                                 np_scores, cfg)
+    assert eng.bail_count == 0
