@@ -5,25 +5,36 @@
 
 Phases:
   1. the card (nvidia-smi name and power limit) and torch version;
-  2. build kernels K1 (csrc/band_dp.cu) and K2 (csrc/traceback.cu) with nvcc;
-  3. K1 against the plain PyTorch DP on the fixture reads and 24 synthetic
+  2. build kernels K1 (csrc/band_dp.cu), K2 (csrc/traceback.cu) and K3
+     (csrc/tier_select.cu) with nvcc, one process per source, and print
+     ptxas registers and shared memory of each;
+  3. the host library: the port's C++ host library must have loaded from
+     the port's build directory, and tests/data/reads.bam must open as the
+     port's NativeBamReader (so the reads/s below are the C++ host path's);
+  4. K1 against the plain PyTorch DP on the fixture reads and 24 synthetic
      reads from each of four length buckets (120-1400 bp), at the
      production AlignConfig(): typ/run planes must be bit-equal;
-  4. K2 against the plain traceback on K1's planes: CIGAR bytes, lengths
+  5. K2 against the plain traceback on K1's planes: CIGAR bytes, lengths
      and bails must be equal;
-  5. the realign CLI with --engine cuda on tests/data/reads.bam must
+  6. the realign CLI with --engine cuda on tests/data/reads.bam must
      reproduce tests/data/npore_realigned.sam (header, 11 fields, tags;
      10/10) with no golden fallback, and launch both kernels;
-  6. throughput: the fixture replicated x256 (batch 1024) and the mixed
-     set, each streamed 5 times (median, min and max reads/s); kernel and
-     plain-version times at those groups' shapes (CUDA events, median of 5;
-     kernels after one warm-up call), with the kernels' outputs required
-     equal to the plain versions' there too;
-  7. a JSON line of kernels, then the device line last.
+  7. throughput: the fixture replicated x256 (batch 1024) and the mixed
+     set, each streamed 5 times (median, min and max reads/s, K1/K2
+     launches per pass); kernel and plain-version times at those groups'
+     shapes (CUDA events, median of 5; kernels after one warm-up call),
+     with the kernels' outputs required equal to the plain versions' there
+     too, and each kernel's bound there;
+  8. K3 against the plain k-select at the probe's (32, 16, 128), N=256 and
+     at (7, 20, 96), Q=10, N=300 with seeded start counts: max |diff| 0;
+     kernel and plain times (CUDA events, median of 5); then the K3 path,
+     the probe's entry point ``npore_tpu_torch.scripts.probe_cond.main()``;
+  9. a JSON line of kernels (launches on their path, error, times, and the
+     least time the card could take for the same work), then the device
+     line last.
 
-Like the port, the script uses only those host modules of ``npore_tpu``
-that load no JAX (BAM/SAM I/O, config, score matrices); it fails if the
-run loaded ``jax``.
+The script imports nothing of JAX or of ``npore_tpu``: it fails if the run
+loaded ``jax``, ``npore_tpu`` or any ``npore_tpu.*`` module.
 """
 from __future__ import annotations
 
@@ -43,6 +54,15 @@ REPLICAS = 256
 BATCH = 1024
 REPS = 5
 PASSES = 5       # timed passes of each throughput stream
+
+# published H100 SXM peaks: the bound of a
+# kernel is the larger of its bytes over HBM_BPS and its float32 operations
+# over FP32_OPS
+HBM_BPS = 3.35e12
+FP32_OPS = 67e12
+# K3 shapes (W, Qx, LANES, Q, N): the probe's, and one with ragged lanes,
+# Qx > Q and a wrapping (k - 1) % Q
+K3_SHAPES = ((32, 16, 128, 16, 256), (7, 20, 96, 10, 300))
 
 
 def nvidia_smi() -> str:
@@ -88,10 +108,55 @@ def rate_stats(n: int, run) -> dict:
             "max": rates[-1], "passes": PASSES, "reads": n}
 
 
+def bound(nbytes: float, ops: float) -> dict:
+    """Least time (ms) of ``nbytes`` moved and ``ops`` float32 operations
+    on the card, and which of the two sets it."""
+    t_b, t_o = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def k1_bound(wins, batch, tables, cfg, packed) -> dict:
+    """K1 reads the group and the tables once and writes the planes once.
+    Operations: the 11 float32 adds and compares every live band cell needs
+    (INS 3, DEL 3, MAT 5); the n-polymer candidates come on top, so this
+    is a lower count."""
+    nbytes = sum(v.numel() * v.element_size() for v in batch.values())
+    nbytes += sum(v.numel() * v.element_size() for v in tables.values())
+    nbytes += packed.numel() * packed.element_size()
+    cells = sum(w.b_rows for w in wins) * (cfg.band_width - 2)
+    return bound(nbytes, 11 * cells)
+
+
+def k2_bound(wins, out) -> dict:
+    """K2 walks one plane cell and one prefix count (4 + 4 bytes) per run,
+    reads two bases per MAT op, writes each CIGAR byte once and reads and
+    writes 16 bytes of counts per window. Runs are counted as the maximal
+    I, D and =/X segments of this run's CIGARs, at most the runs walked."""
+    meta = out.meta.cpu().numpy()
+    cig = out.cig.cpu().numpy()
+    runs = mats = used = 0
+    for j, w in enumerate(wins):
+        e, n = w.n_ins + w.n_del, int(meta[j, 0])
+        c = cig[j, e - n:e]
+        cls = (c == ord("I")) * 1 + (c == ord("D")) * 2
+        runs += int((cls[1:] != cls[:-1]).sum()) + (n > 0)
+        mats += int((cls == 0).sum())
+        used += n
+    return bound(8 * runs + 2 * mats + used + 16 * len(wins), 0)
+
+
+def k3_bound(W: int, Q: int, lanes: int, n_steps: int) -> dict:
+    """K3 reads the min(Q, 12) rows a 12-rung ladder can pick and writes
+    the sums; per element and step one float32 compare and one add."""
+    return bound(4 * W * lanes * (min(Q, 12) + 1), 2 * W * lanes * n_steps)
+
+
 def items_of(reads):
-    from npore_tpu.constants import bases_to_int
-    from npore_tpu.io.cigar import expand_cigar
+    from npore_tpu_torch.constants import bases_to_int
     from npore_tpu_torch.engine.realigner import AlignItem
+    from npore_tpu_torch.io.cigar import expand_cigar
     return [AlignItem(
         bases_to_int(r.get_reference_sequence().upper()),
         bases_to_int(r.query_alignment_sequence.upper()),
@@ -116,16 +181,13 @@ def device_group(items, cfg, device):
 
 def write_mixed_bam(path: str) -> None:
     """24 seeded synthetic reads per length bucket, written with their true
-    alignments (tests/generate_data.py), as bench.py builds its mixed set."""
-    import importlib.util
+    alignments (npore_tpu_torch/testing/synth.py), as bench.py builds its
+    mixed set."""
     import numpy as np
-    from npore_tpu.io.bam_writer import write_bam
-    from npore_tpu.io.cigar import collapse_cigar
-    from npore_tpu.io.sam import SamRecord
-    spec = importlib.util.spec_from_file_location(
-        "gen_data", os.path.join(REPO, "tests", "generate_data.py"))
-    gen = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(gen)
+    from npore_tpu_torch.io.bam_writer import write_bam
+    from npore_tpu_torch.io.cigar import collapse_cigar
+    from npore_tpu_torch.io.sam import SamRecord
+    from npore_tpu_torch.testing import synth as gen
     rng = np.random.default_rng(7)
     ref = gen.make_ref(rng, 6000)
     records = []
@@ -177,16 +239,20 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from npore_tpu.config import AlignConfig
-    from npore_tpu.io.bam import open_alignment_file
-    from npore_tpu.model.scores import (calc_score_matrices,
-                                        load_confusion_matrices)
+    from npore_tpu_torch import native
     from npore_tpu_torch.cli import realign as cli
+    from npore_tpu_torch.config import AlignConfig
     from npore_tpu_torch.engine.realigner import Realigner
-    from npore_tpu_torch.ops import _build, dp_cuda, tb_cuda
+    from npore_tpu_torch.io.bam import open_alignment_file
+    from npore_tpu_torch.io.bam_native import NativeBamReader
+    from npore_tpu_torch.model.scores import (calc_score_matrices,
+                                              load_confusion_matrices)
+    from npore_tpu_torch.ops import _build, dp_cuda, tb_cuda, tier_select_cuda
     from npore_tpu_torch.ops.band_dp import pack_planes, window_dp
     from npore_tpu_torch.ops.tables import tables_from_numpy
+    from npore_tpu_torch.ops.tier_select import tier_select_plain
     from npore_tpu_torch.ops.traceback import traceback as tb_plain
+    from npore_tpu_torch.scripts import probe_cond
     print(nvidia_smi())
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -194,7 +260,8 @@ def main() -> int:
     # --- 2. build ---
     t0 = time.perf_counter()
     _build.build()
-    print(f"[build] both kernels in {time.perf_counter() - t0:.1f}s "
+    print(f"[build] {len(_build.SOURCES)} kernels in "
+          f"{time.perf_counter() - t0:.1f}s "
           f"(per source: " + ", ".join(
               f"{k} {v:.1f}s" for k, v in _build.build_seconds.items()) + ")")
     for name, log in _build.build_logs.items():
@@ -202,9 +269,23 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[ptxas {name}] {line.strip()}")
 
+    # --- 3. the port's C++ host library ---
+    data = os.path.join(REPO, "tests", "data")
+    lib = native.get_lib()
+    lib_dir = os.path.dirname(native.lib_path or "")
+    reader = open_alignment_file(os.path.join(data, "reads.bam"))
+    print(f"[host] C++ library {native.lib_path}; reads.bam opens as "
+          f"{type(reader).__module__}.{type(reader).__name__}", flush=True)
+    if lib is None or os.path.realpath(lib_dir) != os.path.realpath(
+            _build.build_dir()):
+        raise AssertionError("the port's C++ host library did not load from "
+                             f"its build directory {_build.build_dir()}")
+    if not isinstance(reader, NativeBamReader):
+        raise AssertionError("reads.bam did not open as the port's "
+                             "NativeBamReader")
+
     dev = torch.device("cuda")
     cfg = AlignConfig()
-    data = os.path.join(REPO, "tests", "data")
     stats = os.path.join(REPO, "guppy5_stats")
     sub_scores, np_scores, _, _ = calc_score_matrices(
         *load_confusion_matrices(stats))
@@ -217,7 +298,7 @@ def main() -> int:
     write_mixed_bam(mixed_bam)
     mixed = list(open_alignment_file(mixed_bam))
 
-    # --- 3. K1 vs plain DP, 4. K2 vs plain traceback ---
+    # --- 4. K1 vs plain DP, 5. K2 vs plain traceback ---
     items = items_of(fixture) + items_of(mixed)
     wins, batch = device_group(items, cfg, dev)
     B, R = len(wins), batch["inss"].shape[1] - 8
@@ -245,7 +326,7 @@ def main() -> int:
     if n_bail:
         raise AssertionError(f"{n_bail} windows bailed in the traceback")
 
-    # --- 5. the main path: realign CLI, --engine cuda ---
+    # --- 6. the main path: realign CLI, --engine cuda ---
     dp_cuda.launches = 0
     tb_cuda.launches = 0
     pre = os.path.join(tmp.name, "out")
@@ -268,7 +349,7 @@ def main() -> int:
     if k1_launches < 1 or k2_launches < 1:
         raise AssertionError("the main path did not launch both kernels")
 
-    # --- 6. throughput and kernel times ---
+    # --- 7. throughput, kernel times and bounds ---
     eng = Realigner(sub_scores, np_scores, cfg, engine="cuda")
     list(eng.realign_records(iter(fixture * 4), batch_size=256))   # warm
     bam = open_alignment_file(os.path.join(data, "reads.bam"))
@@ -280,9 +361,17 @@ def main() -> int:
                         or r.is_unmapped):
                     yield r
     rep_m = 16
-    fixture_rps = rate_stats(REPLICAS * len(fixture), lambda: (
+
+    def streamed(n, run):
+        """reads/s of ``run`` and its K1/K2 launches per pass."""
+        dp_cuda.launches = tb_cuda.launches = 0
+        out = rate_stats(n, run)
+        out["k1_launches_per_pass"] = dp_cuda.launches / PASSES
+        out["k2_launches_per_pass"] = tb_cuda.launches / PASSES
+        return out
+    fixture_rps = streamed(REPLICAS * len(fixture), lambda: (
         eng.realign_records(work(), batch_size=BATCH)))
-    mixed_rps = rate_stats(len(mixed) * rep_m, lambda: (
+    mixed_rps = streamed(len(mixed) * rep_m, lambda: (
         eng.realign_records(iter(mixed * rep_m), batch_size=BATCH)))
     if eng.bail_count:
         raise AssertionError(f"{eng.bail_count} golden fallbacks under load")
@@ -312,6 +401,8 @@ def main() -> int:
         t["k1_max_diff"] = int((packed - plain).abs().max())
         t["k2_max_diff"] = int((out_k.buf.int() - out_p.buf.int()).abs().max())
         shapes[name] = t
+        t["k1_bound"] = k1_bound(wins, batch, tables, cfg, packed)
+        t["k2_bound"] = k2_bound(wins, out_k)
         print(f"[times {name}] " + json.dumps(t), flush=True)
         if not torch.equal(packed, plain):
             raise AssertionError(f"K1 planes differ from the plain DP ({name})")
@@ -320,8 +411,44 @@ def main() -> int:
                 f"K2 output differs from the plain traceback ({name})")
     tmp.cleanup()
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port's path loaded jax")
+    # --- 8. K3 vs the plain k-select, then the K3 path ---
+    gen = torch.Generator().manual_seed(3)
+    k3 = []
+    for i, (W, qx, lanes, q, n_steps) in enumerate(K3_SHAPES):
+        if i == 0:
+            x, run0 = probe_cond.probe_input(dev), None    # the probe's
+        else:
+            # seeded values, one at the sentinel, and start counts that
+            # mix both tiers inside a block
+            x = torch.rand(W, qx, lanes, generator=gen) * 200 - 50
+            x[0, 0, 0] = 2e9
+            x = x.to(dev)
+            run0 = torch.randint(-50, 50, (W, lanes), generator=gen,
+                                 dtype=torch.int32).to(dev)
+        t = {"W": W, "Qx": qx, "LANES": lanes, "Q": q, "N": n_steps}
+        t["ms"], got = median_ms(
+            lambda: tier_select_cuda.tier_select(x, n_steps, q, run0))
+        t["plain_ms"], want = median_ms(
+            lambda: tier_select_plain(x, n_steps, q, run0))
+        t["max_abs_err"] = float((got - want).abs().max())
+        t.update(k3_bound(W, q, lanes, n_steps))
+        k3.append(t)
+        print("[K3] " + json.dumps(t), flush=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 differs from the plain k-select at {t}")
+    tier_select_cuda.launches = 0
+    probe_cond.main()
+    torch.cuda.synchronize()
+    k3_launches = tier_select_cuda.launches
+    print(f"[K3 path] probe_cond.main(): launches K3 {k3_launches}",
+          flush=True)
+    if k3_launches < 1:
+        raise AssertionError("the probe did not launch K3")
+
+    loaded = sorted(m for m in sys.modules if m == "jax"
+                    or m == "npore_tpu" or m.startswith("npore_tpu."))
+    if loaded:
+        raise AssertionError(f"the port's path loaded {loaded}")
 
     fx = shapes["fixture"]
     kernels = [
@@ -331,14 +458,28 @@ def main() -> int:
          "launches": k1_launches,
          "max_abs_err": max([k1_err] + [t["k1_max_diff"]
                                         for t in shapes.values()]),
-         "ms": fx["k1_ms"], "plain_ms": fx["k1_plain_ms"]},
+         "ms": fx["k1_ms"], "plain_ms": fx["k1_plain_ms"],
+         "bound_ms": fx["k1_bound"]["bound_ms"],
+         "bound_by": fx["k1_bound"]["bound_by"],
+         "library_ms": None},
         {"name": "traceback", "route": "cuda",
          "source": "npore_tpu_torch/csrc/traceback.cu",
          "replaces": "npore_tpu/ops/pallas_dp.py:981",
          "launches": k2_launches,
          "max_abs_err": max([k2_err] + [t["k2_max_diff"]
                                         for t in shapes.values()]),
-         "ms": fx["k2_ms"], "plain_ms": fx["k2_plain_ms"]},
+         "ms": fx["k2_ms"], "plain_ms": fx["k2_plain_ms"],
+         "bound_ms": fx["k2_bound"]["bound_ms"],
+         "bound_by": fx["k2_bound"]["bound_by"],
+         "library_ms": None},
+        {"name": "tier_select", "route": "cuda",
+         "source": "npore_tpu_torch/csrc/tier_select.cu",
+         "replaces": "scripts/probe_cond.py:50",
+         "launches": k3_launches,
+         "max_abs_err": max(t["max_abs_err"] for t in k3),
+         "ms": k3[0]["ms"], "plain_ms": k3[0]["plain_ms"],
+         "bound_ms": k3[0]["bound_ms"], "bound_by": k3[0]["bound_by"],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,17 +11,15 @@ import sys
 from time import perf_counter
 from typing import Optional
 
-from npore_tpu.config import AlignConfig, RealignConfig
-from npore_tpu.engine.regions import get_bam_regions
-from npore_tpu.io.bam import open_alignment_file
-from npore_tpu.io.fasta import FastaFile
-from npore_tpu.io.sam import make_header
-from npore_tpu.model.scores import (calc_score_matrices,
-                                    load_confusion_matrices,
-                                    save_confusion_matrices)
-
 from .. import __version__
+from ..config import AlignConfig, RealignConfig
 from ..engine.realigner import ENGINES, Realigner
+from ..engine.regions import get_bam_regions
+from ..io.bam import open_alignment_file
+from ..io.fasta import FastaFile
+from ..io.sam import make_header
+from ..model.scores import (calc_score_matrices, load_confusion_matrices,
+                            save_confusion_matrices)
 
 
 def argparser() -> argparse.ArgumentParser:
@@ -107,7 +105,7 @@ def run(argv=None) -> Optional[Realigner]:
                    for n in ("subs", "nps", "inss", "dels"))
     if cfg.recalc_cms or not have_all:
         print("> calculating confusion matrices")
-        from npore_tpu.engine.stats import calc_confusion_matrices_bam
+        from ..engine.stats import calc_confusion_matrices_bam
         subs, nps, inss, dels = calc_confusion_matrices_bam(
             bam_path=cfg.bam, ref_fa=ref_fa, regions=regions, cfg=cfg)
         save_confusion_matrices(cfg.stats_dir, subs, nps, inss, dels)
@@ -122,7 +120,7 @@ def run(argv=None) -> Optional[Realigner]:
         subs, nps, inss, dels, cfg.align.max_n, cfg.align.max_l)
 
     if cfg.plot:
-        from npore_tpu.model.plots import (plot_confusion_matrices,
+        from ..model.plots import (plot_confusion_matrices,
                                            plot_np_score_matrices)
         print("> plotting confusion and score matrices")
         plot_confusion_matrices(subs, nps, inss, dels, cfg.stats_dir,

@@ -27,8 +27,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from npore_tpu.config import AlignConfig
-
+from ..config import AlignConfig
 from ..device import resolve_device
 from ..ops import dp_cuda, tb_cuda
 from ..ops.band_dp import check_band, pack_planes, window_dp
@@ -145,11 +144,11 @@ class CudaEngine:
         for i in sorted(bailed):
             self.bail_count += 1
             it = items[i]
-            from npore_tpu.native import golden_align_native
+            from ..native import golden_align_native
             full = golden_align_native(it.ref, it.seq, it.cigar,
                                        self.sub_scores, self.np_scores, cfg)
             if full is None:
-                from npore_tpu.golden.align import align as golden_align
+                from ..golden.align import align as golden_align
                 full = golden_align(it.ref, it.seq, it.cigar,
                                     self.sub_scores, self.np_scores, cfg)
             # golden returns the whole alignment: replace its chunks

@@ -17,10 +17,10 @@ from typing import Iterable, List, Sequence
 
 import numpy as np
 
-from npore_tpu.config import AlignConfig
-from npore_tpu.constants import bases_to_int
-from npore_tpu.io.cigar import expand_cigar, finalize_cigar
-from npore_tpu.io.sam import SamRecord
+from ..config import AlignConfig
+from ..constants import bases_to_int
+from ..io.cigar import expand_cigar, finalize_cigar
+from ..io.sam import SamRecord
 
 ENGINES = ("cuda", "torch", "golden")
 
@@ -58,7 +58,7 @@ class Realigner:
     def align_batch(self, items: Sequence[AlignItem]) -> List[str]:
         """Realign a batch of alignments; returns extended CIGARs ('=XID')."""
         if self._engine is None:
-            from npore_tpu.golden.align import align as golden_align
+            from ..golden.align import align as golden_align
             return [golden_align(it.ref, it.seq, it.cigar, self.sub_scores,
                                  self.np_scores, self.cfg, self.errors)
                     for it in items]
@@ -213,7 +213,7 @@ class Realigner:
     def _finalize_records(self, meta, new_cigars) -> Iterable[SamRecord]:
         # batched C++ finalization: one FFI call for the whole batch; falls
         # back per read without a compiler
-        from npore_tpu.native import finalize_cigar_batch
+        from ..native import finalize_cigar_batch
         new_cigars = list(new_cigars)
         finals = finalize_cigar_batch(
             new_cigars, [m_[1] for m_ in meta], [m_[2] for m_ in meta])

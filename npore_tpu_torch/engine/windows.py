@@ -18,11 +18,10 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from npore_tpu.config import AlignConfig
-from npore_tpu.golden.align import get_breaks
-from npore_tpu.native import np_info, path_inss_native
-from npore_tpu.ops.npinfo_host import get_np_info_vec
-
+from ..config import AlignConfig
+from ..golden.align import get_breaks
+from ..native import np_info, path_inss_native
+from ..ops.npinfo_host import get_np_info_vec
 from ..ops.tables import build_start_tables
 
 PADL = 80        # left zero-padding of per-window arrays

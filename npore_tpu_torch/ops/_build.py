@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("band_dp", "traceback")
+SOURCES = ("band_dp", "traceback", "tier_select")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]       # -v: registers/spills into build_logs
@@ -41,6 +41,7 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "band_dp": ("npore_band_dp", [_P] * 15 + [_I] * 5 + [_F] * 3 + [_P]),
     "traceback": ("npore_traceback", [_P] * 8 + [_I] * 5 + [_P]),
+    "tier_select": ("npore_tier_select", [_P] * 3 + [_I] * 5 + [_P]),
 }
 
 

@@ -29,7 +29,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from npore_tpu.config import AlignConfig
+from ..config import AlignConfig
 
 MAT, INS, LEN, DEL, SHR = 0, 1, 2, 3, 4
 LW = 64          # lane width: band padded to 64 (needs 2r+1 <= 64)

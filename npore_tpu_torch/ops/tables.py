@@ -12,7 +12,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from npore_tpu.config import AlignConfig
+from ..config import AlignConfig
 
 KDIM = 128       # k-dimension of the continuation tables (k clamped at 127)
 NL = 101         # l-dimension: repeat-unit counts 0..100

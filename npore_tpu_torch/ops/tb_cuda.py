@@ -12,8 +12,7 @@ from typing import Dict, Optional
 
 import torch
 
-from npore_tpu.config import AlignConfig
-
+from ..config import AlignConfig
 from . import _build
 from .band_dp import LW
 from .traceback import TbOut, alloc_out

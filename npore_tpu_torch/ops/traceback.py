@@ -22,7 +22,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from npore_tpu.config import AlignConfig
+from ..config import AlignConfig
 
 MAT, INS, LEN, DEL, SHR = 0, 1, 2, 3, 4
 PADL = 80

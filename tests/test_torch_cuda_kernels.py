@@ -1,4 +1,5 @@
-"""Kernels K1 and K2 on a CUDA card against their plain PyTorch versions.
+"""Kernels K1, K2 and K3 on a CUDA card against their plain PyTorch
+versions.
 
 These need the card: on the CPU they skip. On a machine with one, run
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
@@ -6,17 +7,19 @@ These need the card: on the CPU they skip. On a machine with one, run
 import pytest
 import torch
 
-from npore_tpu.config import AlignConfig
-from npore_tpu.golden.align import align as golden_align
+from npore_tpu_torch.config import AlignConfig
 from npore_tpu_torch.engine import windows as tw
 from npore_tpu_torch.engine.realigner import Realigner
+from npore_tpu_torch.golden.align import align as golden_align
 from npore_tpu_torch.ops import band_dp as tdp
-from npore_tpu_torch.ops import dp_cuda, tb_cuda
+from npore_tpu_torch.ops import dp_cuda, tb_cuda, tier_select_cuda
 from npore_tpu_torch.ops.tables import tables_from_numpy
+from npore_tpu_torch.ops.tier_select import tier_select_plain
 from npore_tpu_torch.ops.traceback import traceback
 
 from test_torch_dp import SETS, synthetic_cases, windows_of
 from test_torch_engine import _items
+from test_torch_tier_select import SHAPES, make_input
 
 pytestmark = pytest.mark.cuda
 
@@ -78,3 +81,19 @@ def test_cuda_engine_matches_golden(cuda_device, score_matrices):
         assert g == golden_align(it.ref, it.seq, it.cigar, sub_scores,
                                  np_scores, cfg)
     assert eng.bail_count == 0
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_k3_equal_plain(cuda_device, name):
+    """Bit-equal (tolerance 0): both add in float32 in step order."""
+    x, run0 = make_input(name)
+    _, _, _, q, n = SHAPES[name]
+    xt = torch.from_numpy(x).to(cuda_device)
+    r0 = None if run0 is None else torch.from_numpy(run0).to(cuda_device)
+    before = tier_select_cuda.launches
+    got = tier_select_cuda.tier_select(xt, n, q, r0)
+    torch.cuda.synchronize()
+    assert tier_select_cuda.launches == before + 1
+    assert torch.equal(got, tier_select_plain(xt, n, q, r0))
+    with pytest.raises(ValueError):
+        tier_select_cuda.tier_select(xt, n, q + 100)

@@ -1,14 +1,17 @@
 """The plain PyTorch DP is bit-equal (tolerance 0) to the JAX package's
 make_window_dp on the same numpy-seeded pack_batch inputs."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from npore_tpu.config import AlignConfig
-from npore_tpu.constants import bases_to_int
-from npore_tpu.io.cigar import expand_cigar
+import npore_tpu.config as jcfg
 from npore_tpu.ops import band_dp as jdp
+from npore_tpu_torch.config import AlignConfig
+from npore_tpu_torch.constants import bases_to_int
 from npore_tpu_torch.engine import windows as tw
+from npore_tpu_torch.io.cigar import expand_cigar
 from npore_tpu_torch.ops import band_dp as tdp
 from npore_tpu_torch.ops import dp_cuda
 from npore_tpu_torch.ops.tables import tables_from_numpy
@@ -16,6 +19,11 @@ from npore_tpu_torch.ops.tables import tables_from_numpy
 torch.set_num_threads(2)
 
 SMALL = AlignConfig(r=10, max_b_rows=20)
+
+
+def jax_cfg(cfg: AlignConfig) -> jcfg.AlignConfig:
+    """The JAX package's AlignConfig with the fields of the port's."""
+    return jcfg.AlignConfig(**dataclasses.asdict(cfg))
 
 TOYS = [
     ("CAAAGAAAGAAAG", "CAAAGAAAGAAG", "9=1D3="),
@@ -57,8 +65,9 @@ def random_cases(seed=7, n_cases=12):
 
 
 def synthetic_cases(seed=99, n_reads=4):
-    """Nanopore-like reads at the production band (tests/generate_data.py)."""
-    from generate_data import make_read, make_ref
+    """Nanopore-like reads at the production band (the port's copy of
+    tests/generate_data.py)."""
+    from npore_tpu_torch.testing.synth import make_read, make_ref
     rng = np.random.default_rng(seed)
     ref = make_ref(rng, 600)
     out = []
@@ -99,7 +108,7 @@ def run_both(sets, cfg, score_matrices, R):
     batch = tw.pack_batch(wins, R, cont, cfg.max_n)
     tables = jdp.Tables(sub_flat=jnp.asarray(sub_scores.reshape(-1)),
                         cont=jnp.asarray(cont.reshape(-1)))
-    jt, jr = jdp.make_window_dp(R, cfg, cfg.max_n)(
+    jt, jr = jdp.make_window_dp(R, jax_cfg(cfg), cfg.max_n)(
         {k: jnp.asarray(v) for k, v in batch.items()}, tables)
     tt, tr = tdp.window_dp({k: torch.from_numpy(v) for k, v in batch.items()},
                            tables_from_numpy(sub_scores, np_scores, cfg,

@@ -5,18 +5,25 @@ import numpy as np
 import pytest
 import torch
 
-from npore_tpu.config import AlignConfig
-from npore_tpu.constants import bases_to_int
-from npore_tpu.golden.align import align as golden_align
-from npore_tpu.io.cigar import expand_cigar
+from npore_tpu.golden.align import align as jax_golden_align
+from npore_tpu_torch.config import AlignConfig
+from npore_tpu_torch.constants import bases_to_int
 from npore_tpu_torch.engine.realigner import AlignItem, Realigner
 from npore_tpu_torch.engine.windows import build_windows
+from npore_tpu_torch.io.cigar import expand_cigar
 
-from test_torch_dp import REPEATS, SMALL, TOYS, random_cases, synthetic_cases
+from test_torch_dp import (REPEATS, SMALL, TOYS, jax_cfg, random_cases,
+                           synthetic_cases)
 
 torch.set_num_threads(2)
 
 PALLAS_TOYS = TOYS + REPEATS
+
+
+def golden_align(ref, seq, cigar, sub_scores, np_scores, cfg):
+    """The JAX package's golden spec under the port's config's values."""
+    return jax_golden_align(ref, seq, cigar, sub_scores, np_scores,
+                            jax_cfg(cfg))
 
 
 def _items(cases):
@@ -115,7 +122,8 @@ def test_engine_rejects_max_l_past_tables(score_matrices, engine):
 def pallas_engine(score_matrices):
     from npore_tpu.engine.pallas_engine import PallasEngine
     sub_scores, np_scores, _, _ = score_matrices
-    return PallasEngine(sub_scores, np_scores, AlignConfig(), interpret=True)
+    return PallasEngine(sub_scores, np_scores, jax_cfg(AlignConfig()),
+                        interpret=True)
 
 
 @pytest.mark.parametrize("name", ["toys", "long_indels"])

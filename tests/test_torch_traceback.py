@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from npore_tpu.config import AlignConfig
 from npore_tpu.ops.traceback import traceback_window
+from npore_tpu_torch.config import AlignConfig
 from npore_tpu_torch.engine import windows as tw
 from npore_tpu_torch.ops import band_dp as tdp
 from npore_tpu_torch.ops import tb_cuda

@@ -6,14 +6,16 @@ import numpy as np
 import pytest
 import torch
 
-from npore_tpu.config import AlignConfig
-from npore_tpu.constants import bases_to_int
 from npore_tpu.engine import windows as jw
-from npore_tpu.io.bam import open_alignment_file
-from npore_tpu.io.cigar import expand_cigar
 from npore_tpu.ops.band_dp import build_cont_tables
+from npore_tpu_torch.config import AlignConfig
+from npore_tpu_torch.constants import bases_to_int
 from npore_tpu_torch.engine import windows as tw
+from npore_tpu_torch.io.bam import open_alignment_file
+from npore_tpu_torch.io.cigar import expand_cigar
 from npore_tpu_torch.ops.tables import tables_from_numpy
+
+from test_torch_dp import jax_cfg
 
 torch.set_num_threads(2)
 
@@ -38,6 +40,10 @@ def _repeat_items():
 
 
 def _windows(items, cfg, mod):
+    """Windows of ``items`` from module ``mod`` (tw or jw), each given its
+    own package's config."""
+    if mod is jw:
+        cfg = jax_cfg(cfg)
     out = []
     for i, (ref, seq, cig) in enumerate(items):
         out += mod.build_windows(ref, seq, cig, cfg, aln_idx=i)
