@@ -25,11 +25,16 @@ Phases:
      shapes (CUDA events, median of 5; kernels after one warm-up call),
      with the kernels' outputs required equal to the plain versions' there
      too, and each kernel's bound there;
-  8. K3 against the plain k-select at the probe's (32, 16, 128), N=256 and
+  8. K1 wave sweep: K1 on the first B in (132, 924, 1024) windows of the
+     fixture's 1024-window group at the same R (CUDA events, median of 5
+     after a warm-up call): ms, µs per row, the CTAs resident per SM that
+     the kernel's occupancy entry point reports, and the waves that makes;
+     the planes must be bit-equal to the plain DP's on that group;
+  9. K3 against the plain k-select at the probe's (32, 16, 128), N=256 and
      at (7, 20, 96), Q=10, N=300 with seeded start counts: max |diff| 0;
      kernel and plain times (CUDA events, median of 5); then the K3 path,
      the probe's entry point ``npore_tpu_torch.scripts.probe_cond.main()``;
-  9. a JSON line of kernels (launches on their path, error, times, and the
+ 10. a JSON line of kernels (launches on their path, error, times, and the
      least time the card could take for the same work), then the device
      line last.
 
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -54,6 +60,7 @@ REPLICAS = 256
 BATCH = 1024
 REPS = 5
 PASSES = 5       # timed passes of each throughput stream
+SWEEP = (132, 924, 1024)   # K1 wave sweep: windows of the fixture group
 
 # published H100 SXM peaks: the bound of a
 # kernel is the larger of its bytes over HBM_BPS and its float32 operations
@@ -265,9 +272,13 @@ def main() -> int:
           f"(per source: " + ", ".join(
               f"{k} {v:.1f}s" for k, v in _build.build_seconds.items()) + ")")
     for name, log in _build.build_logs.items():
+        tag = name
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                n = re.search(r"ILi(\d+)E", line)     # K1's max_n template
+                tag = f"{name} max_n={n.group(1)}" if n else name
             if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+                print(f"[ptxas {tag}] {line.strip()}")
 
     # --- 3. the port's C++ host library ---
     data = os.path.join(REPO, "tests", "data")
@@ -379,7 +390,7 @@ def main() -> int:
           f"{json.dumps(fixture_rps)}; mixed set x{rep_m} reads/s "
           f"{json.dumps(mixed_rps)}", flush=True)
 
-    shapes = {}
+    shapes, groups = {}, {}
     for name, its in (("fixture", items_of(fixture) * (BATCH // 10 + 1)),
                       ("mixed", items_of(mixed))):
         its = its[:BATCH]
@@ -398,6 +409,7 @@ def main() -> int:
         t["k2_plain_ms"], out_p = median_ms(
             lambda: tb_plain(packed, batch, cfg, L), warm=False)
         plain = pack_planes(*planes)
+        groups[name] = (batch, plain)
         t["k1_max_diff"] = int((packed - plain).abs().max())
         t["k2_max_diff"] = int((out_k.buf.int() - out_p.buf.int()).abs().max())
         shapes[name] = t
@@ -411,7 +423,29 @@ def main() -> int:
                 f"K2 output differs from the plain traceback ({name})")
     tmp.cleanup()
 
-    # --- 8. K3 vs the plain k-select, then the K3 path ---
+    # --- 8. K1 wave sweep on the fixture group ---
+    batch, plain = groups.pop("fixture")
+    R = batch["inss"].shape[1] - 8
+    occ = dp_cuda.occupancy(cfg)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sweep = []
+    for nb in SWEEP:
+        part = {k: v[:nb] for k, v in batch.items()}
+        ms, got = median_ms(lambda: dp_cuda.band_dp(part, tables, cfg))
+        t = {"B": nb, "R": R, "ms": ms, "us_per_row": ms * 1e3 / R,
+             "ctas_per_sm": occ, "waves": -(-nb // (occ * sms)),
+             "max_abs_err": int((got - plain[:nb]).abs().max())}
+        sweep.append(t)
+        print("[K1 sweep] " + json.dumps(t), flush=True)
+        if not torch.equal(got, plain[:nb]):
+            raise AssertionError(f"K1 planes differ from the plain DP on the "
+                                 f"first {nb} windows")
+    print(f"[K1 sweep] {SWEEP[-1]} windows take "
+          f"{sweep[-1]['ms'] / sweep[0]['ms']:.3f}x the time of "
+          f"{SWEEP[0]}", flush=True)
+    del batch, plain, groups
+
+    # --- 9. K3 vs the plain k-select, then the K3 path ---
     gen = torch.Generator().manual_seed(3)
     k3 = []
     for i, (W, qx, lanes, q, n_steps) in enumerate(K3_SHAPES):

@@ -37,11 +37,13 @@ build_logs: Dict[str, str] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures of the entry points (every pointer and the stream as void*)
+# C signatures of each library's entry points, the launch first (every
+# pointer and the stream as void*)
 _ARGTYPES = {
-    "band_dp": ("npore_band_dp", [_P] * 15 + [_I] * 5 + [_F] * 3 + [_P]),
-    "traceback": ("npore_traceback", [_P] * 8 + [_I] * 5 + [_P]),
-    "tier_select": ("npore_tier_select", [_P] * 3 + [_I] * 5 + [_P]),
+    "band_dp": {"npore_band_dp": [_P] * 15 + [_I] * 5 + [_F] * 3 + [_P],
+                "npore_band_dp_occupancy": [_I]},
+    "traceback": {"npore_traceback": [_P] * 8 + [_I] * 5 + [_P]},
+    "tier_select": {"npore_tier_select": [_P] * 3 + [_I] * 5 + [_P]},
 }
 
 
@@ -99,16 +101,18 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(build([name])[name])
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _ARGTYPES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
     return _libs[name]
 
 
-def entry(name: str):
-    return getattr(load(name), _ARGTYPES[name][0])
+def entry(name: str, fn: str = ""):
+    """Entry point ``fn`` of kernel ``name``'s library (its launch by
+    default)."""
+    return getattr(load(name), fn or next(iter(_ARGTYPES[name])))
 
 
 def check(err: int, what: str) -> None:

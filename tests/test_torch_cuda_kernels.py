@@ -17,7 +17,7 @@ from npore_tpu_torch.ops.tables import tables_from_numpy
 from npore_tpu_torch.ops.tier_select import tier_select_plain
 from npore_tpu_torch.ops.traceback import traceback
 
-from test_torch_dp import SETS, synthetic_cases, windows_of
+from test_torch_dp import SETS, random_cases, synthetic_cases, windows_of
 from test_torch_engine import _items
 from test_torch_tier_select import SHAPES, make_input
 
@@ -57,6 +57,35 @@ def test_k1_k2_equal_plain(cuda_device, score_matrices, name):
     assert tb_cuda.launches == n2 + 1
     assert torch.equal(got.buf, traceback(packed, batch, cfg).buf)
     assert int(got.meta[:, 1].sum()) == 0
+
+
+@pytest.mark.parametrize("r,max_n", [(10, 3), (10, 6), (30, 3), (30, 6)])
+def test_k1_equal_plain_past_one_wave(cuda_device, score_matrices, r, max_n):
+    """K1 bit-equal to the plain DP on one group of more windows than one
+    wave of CTAs holds: short reads with mixed row counts, so CTAs of the
+    second wave and zero-filled tails are covered; the state ring's depth
+    follows max_n."""
+    sub_scores, np_scores, _, _ = score_matrices
+    cfg = AlignConfig(r=r, max_n=max_n)
+    wins = windows_of(random_cases(seed=11, n_cases=1500), cfg)
+    rows = [w.b_rows for w in wins]
+    R = max(rows)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert len(wins) > dp_cuda.occupancy(cfg) * sms
+    assert min(rows) < R // 2
+    buf, layout = tw.pack_group(wins, R, cfg.max_n)
+    batch = tw.tensor_views(torch.from_numpy(buf).to(cuda_device), layout)
+    tabs = tables_from_numpy(sub_scores, np_scores[:max_n], cfg, cuda_device)
+    packed = dp_cuda.band_dp(batch, tabs, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(packed,
+                       tdp.pack_planes(*tdp.window_dp(batch, tabs, cfg)))
+
+
+def test_k1_one_wave_at_production_config(cuda_device):
+    """At least 8 CTAs of K1 fit an SM, so a 1024-window group runs in one
+    wave on 132 SMs."""
+    assert dp_cuda.occupancy(AlignConfig()) >= 8
 
 
 def test_wrappers_reject_bad_inputs(cuda_device, score_matrices):

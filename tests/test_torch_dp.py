@@ -146,6 +146,24 @@ def test_dp_bit_equal_production_band(planes_wide):
     assert np.array_equal(tr, jr)
 
 
+@pytest.fixture(scope="module")
+def planes_n3(score_matrices):
+    """Both DPs at max_n = 3 (a shallower n-polymer ring for the kernel),
+    with the tables built from np_scores[:3]."""
+    sub_scores, np_scores, a, b = score_matrices
+    return run_both({k: v[0] for k, v in SETS.items()},
+                    dataclasses.replace(SMALL, max_n=3),
+                    (sub_scores, np_scores[:3], a, b), R=64)
+
+
+@pytest.mark.parametrize("name", sorted(SETS))
+def test_dp_bit_equal_max_n3(planes_n3, name):
+    jt, jr, tt, tr, wins = planes_n3[0][name]
+    assert len(wins) > 0
+    assert np.array_equal(tt, jt)
+    assert np.array_equal(tr, jr)
+
+
 def test_dp_exercises_len_and_shr(planes_small):
     """The repeat-rich set reaches n-polymer states on the MAT plane."""
     _, _, tt, _, _ = planes_small[0]["repeats"]
@@ -184,6 +202,13 @@ def test_dp_cuda_wrapper_without_cuda(planes_small, score_matrices):
     meta = {k: v.to("meta") for k, v in tb.items()}
     with pytest.raises(ValueError):
         dp_cuda.band_dp(meta, tabs, SMALL)
+
+
+def test_dp_cuda_occupancy_needs_max_n_in_ring():
+    """The kernel keeps 8 rows of state, so max_n past 7 is refused before
+    any build."""
+    with pytest.raises(ValueError):
+        dp_cuda.occupancy(AlignConfig(max_n=8))
 
 
 def test_band_must_fit_lanes():

@@ -48,6 +48,7 @@ MODULES = [
     "npore_tpu_torch.engine.realigner",
     "npore_tpu_torch.cli.realign",
     "npore_tpu_torch.scripts.probe_cond",
+    "npore_tpu_torch.scripts.k1_ab",
     "npore_tpu_torch.testing.synth",
 ]
 PORT_FILES = sorted(
