@@ -24,16 +24,30 @@ Phases:
      launches per pass); kernel and plain-version times at those groups'
      shapes (CUDA events, median of 5; kernels after one warm-up call),
      with the kernels' outputs required equal to the plain versions' there
-     too, and each kernel's bound there;
+     too, and each kernel's bound there. K2 is timed warm (``k2_ms``: the
+     same planes relaunched, hot in L2) and cold (``k2_cold_ms``: a 64 MB
+     write between launches flushes the 50 MB L2, as on the main path,
+     where K1 has just written far more planes than L2 holds). Kernel
+     times include the host's launch of the call; ``*_device_ms`` are the
+     same calls queued behind a device sleep, the device's work alone. A third
+     group, ``long``, holds 6 windows of 20,000 rows cut from synthetic
+     reads of ~10.6 kb (max_b_rows = 20000): K1 and K2 warm and
+     cold there (``k2_long_ms``), K2 equal to the plain traceback. Each
+     group's line carries K2's launch plan (windows a CTA, tile rows,
+     shared memory) and the CTAs resident an SM (``tb_cuda.occupancy``);
   8. K1 wave sweep: K1 on the first B in (132, 924, 1024) windows of the
      fixture's 1024-window group at the same R (CUDA events, median of 5
      after a warm-up call): ms, µs per row, the CTAs resident per SM that
      the kernel's occupancy entry point reports, and the waves that makes;
      the planes must be bit-equal to the plain DP's on that group;
-  9. K3 against the plain k-select at the probe's (32, 16, 128), N=256 and
-     at (7, 20, 96), Q=10, N=300 with seeded start counts: max |diff| 0;
-     kernel and plain times (CUDA events, median of 5); then the K3 path,
-     the probe's entry point ``npore_tpu_torch.scripts.probe_cond.main()``;
+  9. K3 against the plain k-select at the probe's (32, 16, 128), N=256, at
+     (7, 20, 96), Q=10, N=300 with seeded start counts, and at
+     (4, 16, 160), Q=12, N=100, where the first warp of each row starts at
+     0 so the warps of a row vote different tiers: max |diff| 0; kernel
+     and plain times (CUDA events, median of 5; kernel also queued), and
+     K3 at N=0 at the probe's shape (a launch that does no step), with and
+     without the host's launch; then the K3 path, the
+     probe's entry point ``npore_tpu_torch.scripts.probe_cond.main()``;
  10. a JSON line of kernels (launches on their path, error, times, and the
      least time the card could take for the same work), then the device
      line last.
@@ -67,9 +81,16 @@ SWEEP = (132, 924, 1024)   # K1 wave sweep: windows of the fixture group
 # over FP32_OPS
 HBM_BPS = 3.35e12
 FP32_OPS = 67e12
-# K3 shapes (W, Qx, LANES, Q, N): the probe's, and one with ragged lanes,
-# Qx > Q and a wrapping (k - 1) % Q
-K3_SHAPES = ((32, 16, 128, 16, 256), (7, 20, 96, 10, 300))
+# K3 shapes (W, Qx, LANES, Q, N): the probe's; one with ragged lanes,
+# Qx > Q and a wrapping (k - 1) % Q; one whose rows span five warps
+K3_SHAPES = ((32, 16, 128, 16, 256), (7, 20, 96, 10, 300),
+             (4, 16, 160, 12, 100))
+FLUSH_BYTES = 64 << 20     # written between cold launches: more than L2
+QUEUE_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a queued call
+# the long group: windows of at least LONG_ROWS rows, the first window
+# max_b_rows cuts from synthetic reads of (min, max) length
+LONG = (6, 10400, 10800)    # (windows, min, max read length)
+LONG_ROWS = 20000
 
 
 def nvidia_smi() -> str:
@@ -80,15 +101,25 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0] if out.stdout else "unknown"
 
 
-def median_ms(fn, reps: int = REPS, warm: bool = True):
+def median_ms(fn, reps: int = REPS, warm: bool = True, flush=None,
+              queued: bool = False):
     """Median CUDA-event time of ``fn`` over ``reps`` calls, and the last
-    call's result."""
+    call's result. ``flush``: a device tensor zeroed before each timed
+    call, outside the events, so the call finds L2 cold. ``queued``: the
+    stream sleeps on the device while the host enqueues the events and the
+    call, so the events time the device's work alone; otherwise they also
+    take in the host's time to launch it (the wrapper's checks, output
+    allocation and launch)."""
     import torch
     if warm:
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -184,6 +215,59 @@ def device_group(items, cfg, device):
     buf, layout = pack_group(wins, R, cfg.max_n)
     batch = tensor_views(torch.from_numpy(buf).to(device), layout)
     return wins, batch
+
+
+def long_group(cfg, device):
+    """LONG[0] windows of at least LONG_ROWS rows, from seeded synthetic
+    reads, as one packed group on ``device``. max_b_rows = 20000 cuts a
+    read's first window at 19,999 or 20,000 rows (one less where the cut
+    would split a match), so reads are drawn until enough have 20,000."""
+    import numpy as np
+    import torch
+    from npore_tpu_torch.constants import bases_to_int
+    from npore_tpu_torch.engine.windows import (build_windows, pack_group,
+                                                tensor_views)
+    from npore_tpu_torch.testing import synth as gen
+    n, lo, hi = LONG
+    rng = np.random.default_rng(11)
+    ref = gen.make_ref(rng, 3 * hi)
+    wins = []
+    for i in range(16 * n):
+        pos, seq, cig = gen.make_read(rng, ref, min_len=lo, max_len=hi)
+        span = sum(c != "I" for c in cig)
+        wins += [w for w in build_windows(
+            bases_to_int(ref[pos:pos + span]), bases_to_int(seq), cig, cfg,
+            aln_idx=i) if w.b_rows >= LONG_ROWS]
+        if len(wins) == n:
+            break
+    if len(wins) < n:
+        raise AssertionError(f"the long group has {len(wins)} windows of "
+                             f">= {LONG_ROWS} rows, not {n}")
+    R = max(w.b_rows for w in wins)
+    buf, layout = pack_group(wins, R, cfg.max_n)
+    return wins, tensor_views(torch.from_numpy(buf).to(device), layout)
+
+
+def k3_input(i: int, device):
+    """x and start counts (None: zeros) of K3_SHAPES[i]: the probe's own
+    input, then seeded values (one at the sentinel) with start counts that
+    mix both tiers; in the last shape the first warp of each row starts at
+    0, so for its first steps it takes the low tier and the rest of the
+    row the full one."""
+    import torch
+    from npore_tpu_torch.ops.tier_select_cuda import WARP
+    from npore_tpu_torch.scripts import probe_cond
+    if i == 0:
+        return probe_cond.probe_input(device), None
+    W, qx, lanes, _, _ = K3_SHAPES[i]
+    gen = torch.Generator().manual_seed(2 + i)
+    x = torch.rand(W, qx, lanes, generator=gen) * 200 - 50
+    x[0, 0, 0] = 2e9
+    run0 = torch.randint(-50, 50, (W, lanes), generator=gen,
+                         dtype=torch.int32)
+    if i == 2:
+        run0[:, :WARP] = 0
+    return x.to(device), run0.to(device)
 
 
 def write_mixed_bam(path: str) -> None:
@@ -391,36 +475,63 @@ def main() -> int:
           f"{json.dumps(mixed_rps)}", flush=True)
 
     shapes, groups = {}, {}
-    for name, its in (("fixture", items_of(fixture) * (BATCH // 10 + 1)),
-                      ("mixed", items_of(mixed))):
-        its = its[:BATCH]
-        wins, batch = device_group(its, cfg, dev)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    for name in ("fixture", "mixed", "long"):
+        if name == "long":
+            wins, batch = long_group(cfg, dev)
+        else:
+            its = (items_of(fixture) * (BATCH // 10 + 1) if name == "fixture"
+                   else items_of(mixed))[:BATCH]
+            wins, batch = device_group(its, cfg, dev)
         L = max(w.n_ins + w.n_del for w in wins)
         packed = dp_cuda.band_dp(batch, tables, cfg)
         t = {"B": len(wins), "R": batch["inss"].shape[1] - 8}
+        plan = tb_cuda.launch_plan(t["B"], t["R"])
+        t["k2_plan"] = plan._asdict()
+        t["k2_ctas_per_sm"] = tb_cuda.occupancy(t["B"], t["R"])
         t["k1_ms"], _ = median_ms(
             lambda: dp_cuda.band_dp(batch, tables, cfg))
+        t["k1_device_ms"], _ = median_ms(
+            lambda: dp_cuda.band_dp(batch, tables, cfg), queued=True)
+
+        def k2():
+            return tb_cuda.traceback(packed, batch, cfg, L)
+        t["k2_ms"], out_k = median_ms(k2)
+        t["k2_cold_ms"], out_c = median_ms(k2, flush=flush)
+        t["k2_device_ms"], _ = median_ms(k2, queued=True)
+        t["k2_cold_device_ms"], _ = median_ms(k2, flush=flush, queued=True)
         # the plain versions are timed cold: they compile nothing, and a
-        # warm-up call of the DP costs tens of seconds
-        t["k1_plain_ms"], planes = median_ms(
-            lambda: window_dp(batch, tables, cfg), warm=False)
-        t["k2_ms"], out_k = median_ms(
-            lambda: tb_cuda.traceback(packed, batch, cfg, L))
+        # warm-up call of the DP costs tens of seconds; at the long group
+        # the plain DP would take hours and the traceback runs once
+        if name != "long":
+            t["k1_plain_ms"], planes = median_ms(
+                lambda: window_dp(batch, tables, cfg), warm=False)
+            plain = pack_planes(*planes)
+            groups[name] = (batch, plain)
+            t["k1_max_diff"] = int((packed - plain).abs().max())
         t["k2_plain_ms"], out_p = median_ms(
-            lambda: tb_plain(packed, batch, cfg, L), warm=False)
-        plain = pack_planes(*planes)
-        groups[name] = (batch, plain)
-        t["k1_max_diff"] = int((packed - plain).abs().max())
-        t["k2_max_diff"] = int((out_k.buf.int() - out_p.buf.int()).abs().max())
+            lambda: tb_plain(packed, batch, cfg, L), warm=False,
+            reps=1 if name == "long" else REPS)
+        t["k2_max_diff"] = max(
+            int((o.buf.int() - out_p.buf.int()).abs().max())
+            for o in (out_k, out_c))
+        t["k2_bails"] = int(out_k.meta[:, 1].sum())
         shapes[name] = t
-        t["k1_bound"] = k1_bound(wins, batch, tables, cfg, packed)
+        if name != "long":
+            t["k1_bound"] = k1_bound(wins, batch, tables, cfg, packed)
         t["k2_bound"] = k2_bound(wins, out_k)
         print(f"[times {name}] " + json.dumps(t), flush=True)
-        if not torch.equal(packed, plain):
+        if name != "long" and not torch.equal(packed, plain):
             raise AssertionError(f"K1 planes differ from the plain DP ({name})")
-        if not torch.equal(out_k.buf, out_p.buf):
+        if not (torch.equal(out_k.buf, out_p.buf)
+                and torch.equal(out_c.buf, out_p.buf)):
             raise AssertionError(
                 f"K2 output differs from the plain traceback ({name})")
+    del flush, packed, batch, out_k, out_c, out_p
+    print(f"[K2] k2_long_ms {shapes['long']['k2_ms']} warm, "
+          f"{shapes['long']['k2_cold_ms']} cold, at "
+          f"{shapes['long']['B']} windows x {shapes['long']['R']} rows",
+          flush=True)
     tmp.cleanup()
 
     # --- 8. K1 wave sweep on the fixture group ---
@@ -446,22 +557,15 @@ def main() -> int:
     del batch, plain, groups
 
     # --- 9. K3 vs the plain k-select, then the K3 path ---
-    gen = torch.Generator().manual_seed(3)
     k3 = []
     for i, (W, qx, lanes, q, n_steps) in enumerate(K3_SHAPES):
-        if i == 0:
-            x, run0 = probe_cond.probe_input(dev), None    # the probe's
-        else:
-            # seeded values, one at the sentinel, and start counts that
-            # mix both tiers inside a block
-            x = torch.rand(W, qx, lanes, generator=gen) * 200 - 50
-            x[0, 0, 0] = 2e9
-            x = x.to(dev)
-            run0 = torch.randint(-50, 50, (W, lanes), generator=gen,
-                                 dtype=torch.int32).to(dev)
+        x, run0 = k3_input(i, dev)
         t = {"W": W, "Qx": qx, "LANES": lanes, "Q": q, "N": n_steps}
         t["ms"], got = median_ms(
             lambda: tier_select_cuda.tier_select(x, n_steps, q, run0))
+        t["device_ms"], _ = median_ms(
+            lambda: tier_select_cuda.tier_select(x, n_steps, q, run0),
+            queued=True)
         t["plain_ms"], want = median_ms(
             lambda: tier_select_plain(x, n_steps, q, run0))
         t["max_abs_err"] = float((got - want).abs().max())
@@ -470,6 +574,11 @@ def main() -> int:
         print("[K3] " + json.dumps(t), flush=True)
         if not torch.equal(got, want):
             raise AssertionError(f"K3 differs from the plain k-select at {t}")
+    x, _ = k3_input(0, dev)
+    n0 = [median_ms(lambda: tier_select_cuda.tier_select(x, 0, 16),
+                    queued=queued)[0] for queued in (False, True)]
+    print(f"[K3] N=0 at {K3_SHAPES[0][:3]} (a launch with no step): "
+          f"{n0[0]} ms, device {n0[1]} ms", flush=True)
     tier_select_cuda.launches = 0
     probe_cond.main()
     torch.cuda.synchronize()
@@ -491,8 +600,10 @@ def main() -> int:
          "replaces": "npore_tpu/ops/pallas_dp.py:779",
          "launches": k1_launches,
          "max_abs_err": max([k1_err] + [t["k1_max_diff"]
-                                        for t in shapes.values()]),
-         "ms": fx["k1_ms"], "plain_ms": fx["k1_plain_ms"],
+                                        for t in shapes.values()
+                                        if "k1_max_diff" in t]),
+         "ms": fx["k1_ms"], "device_ms": fx["k1_device_ms"],
+         "plain_ms": fx["k1_plain_ms"],
          "bound_ms": fx["k1_bound"]["bound_ms"],
          "bound_by": fx["k1_bound"]["bound_by"],
          "library_ms": None},
@@ -502,7 +613,10 @@ def main() -> int:
          "launches": k2_launches,
          "max_abs_err": max([k2_err] + [t["k2_max_diff"]
                                         for t in shapes.values()]),
-         "ms": fx["k2_ms"], "plain_ms": fx["k2_plain_ms"],
+         "ms": fx["k2_ms"], "cold_ms": fx["k2_cold_ms"],
+         "device_ms": fx["k2_device_ms"],
+         "cold_device_ms": fx["k2_cold_device_ms"],
+         "plain_ms": fx["k2_plain_ms"],
          "bound_ms": fx["k2_bound"]["bound_ms"],
          "bound_by": fx["k2_bound"]["bound_by"],
          "library_ms": None},
@@ -511,7 +625,8 @@ def main() -> int:
          "replaces": "scripts/probe_cond.py:50",
          "launches": k3_launches,
          "max_abs_err": max(t["max_abs_err"] for t in k3),
-         "ms": k3[0]["ms"], "plain_ms": k3[0]["plain_ms"],
+         "ms": k3[0]["ms"], "device_ms": k3[0]["device_ms"],
+         "plain_ms": k3[0]["plain_ms"],
          "bound_ms": k3[0]["bound_ms"], "bound_by": k3[0]["bound_by"],
          "library_ms": None},
     ]

@@ -42,7 +42,8 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "band_dp": {"npore_band_dp": [_P] * 15 + [_I] * 5 + [_F] * 3 + [_P],
                 "npore_band_dp_occupancy": [_I]},
-    "traceback": {"npore_traceback": [_P] * 8 + [_I] * 5 + [_P]},
+    "traceback": {"npore_traceback": [_P] * 8 + [_I] * 7 + [_P],
+                  "npore_traceback_occupancy": [_I] * 2},
     "tier_select": {"npore_tier_select": [_P] * 3 + [_I] * 5 + [_P]},
 }
 

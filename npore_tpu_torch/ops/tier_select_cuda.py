@@ -17,7 +17,7 @@ from .tier_select import tier_select_plain
 
 launches = 0     # kernel launches (plain-version calls are not counted)
 
-MAX_LANES = 1024   # one thread per lane in a block
+WARP = 32        # elements of the row-major (W, LANES) output a tier vote
 
 
 def tier_select(x: torch.Tensor, n_steps: int, q: int,
@@ -34,9 +34,6 @@ def tier_select(x: torch.Tensor, n_steps: int, q: int,
     W, qx, lanes = x.shape
     if not 1 <= q <= qx:
         raise ValueError(f"tier_select: need 1 <= q <= Qx = {qx}, got {q}")
-    if lanes > MAX_LANES:
-        raise ValueError(f"tier_select: at most {MAX_LANES} lanes, got "
-                         f"{lanes}")
     if n_steps < 0:
         raise ValueError(f"tier_select: n_steps must be >= 0, got {n_steps}")
     if run0 is not None and (

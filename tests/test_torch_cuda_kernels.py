@@ -4,6 +4,7 @@ versions.
 These need the card: on the CPU they skip. On a machine with one, run
 ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -15,7 +16,8 @@ from npore_tpu_torch.ops import band_dp as tdp
 from npore_tpu_torch.ops import dp_cuda, tb_cuda, tier_select_cuda
 from npore_tpu_torch.ops.tables import tables_from_numpy
 from npore_tpu_torch.ops.tier_select import tier_select_plain
-from npore_tpu_torch.ops.traceback import traceback
+from npore_tpu_torch.ops.traceback import MAT, traceback
+from npore_tpu_torch.testing.planes import path_group, random_cigar
 
 from test_torch_dp import SETS, random_cases, synthetic_cases, windows_of
 from test_torch_engine import _items
@@ -110,6 +112,78 @@ def test_cuda_engine_matches_golden(cuda_device, score_matrices):
         assert g == golden_align(it.ref, it.seq, it.cigar, sub_scores,
                                  np_scores, cfg)
     assert eng.bail_count == 0
+
+
+def _k2_equal_plain(batch, packed, device):
+    """K2 on the card against the plain traceback on the same tensors:
+    the whole output buffer, bailed windows' partial bytes included."""
+    batch = {k: v.to(device) for k, v in batch.items()}
+    packed = packed.to(device)
+    n = tb_cuda.launches
+    got = tb_cuda.traceback(packed, batch, AlignConfig())
+    torch.cuda.synchronize()
+    assert tb_cuda.launches == n + 1
+    want = traceback(packed, batch, AlignConfig())
+    assert torch.equal(got.buf, want.buf)
+    return want
+
+
+def test_k2_long_windows(cuda_device):
+    """Four windows of more than 20,000 rows (5.12 MB of planes each,
+    streamed through the ring many times over)."""
+    rng = np.random.default_rng(20)
+    wins, batch, packed = path_group(
+        [random_cigar(rng, 10600) for _ in range(4)], seed=20)
+    assert min(len(w.inss_local) for w in wins) >= 20000
+    out = _k2_equal_plain(batch, packed, cuda_device)
+    assert int(out.meta[:, 1].sum()) == 0
+
+
+@pytest.mark.parametrize("B", [1, 33, 1025])
+def test_k2_ragged_groups(cuda_device, B):
+    """Groups that leave warps of the last CTA idle, with windows of 2 to
+    ~900 rows in one group."""
+    rng = np.random.default_rng(B)
+    cigars = [random_cigar(rng, int(n)) for n in rng.integers(1, 450, B)]
+    out = _k2_equal_plain(*path_group(cigars, seed=B)[1:], cuda_device)
+    assert int(out.meta[:, 1].sum()) == 0
+
+
+@pytest.mark.parametrize("kind", ["run0", "bad_type", "midpath_zero",
+                                  "lane_outside", "mat_past_row0"])
+def test_k2_corrupted_planes(cuda_device, kind):
+    """A corrupted cell at the start, the middle or the end of each path:
+    K2 bails where the plain traceback does and keeps the same partial
+    bytes."""
+    rng = np.random.default_rng(3)
+    cigars = ["DDD==X==I" + random_cigar(rng, int(n))
+              for n in rng.integers(60, 500, 40)]
+    wins, batch, packed = path_group(cigars, seed=3)
+    for j, w in enumerate(wins):
+        t, lane, typ, n = w.cells[(0, len(w.cells) // 2, -3)[j % 3]]
+        if kind == "run0":
+            packed[j, t, lane] = typ
+        elif kind == "bad_type":
+            packed[j, t, lane] = 5 + j % 3 | n << 3
+        elif kind == "midpath_zero":
+            packed[j, t, lane] = 0
+        elif kind == "lane_outside":
+            batch["inss"][j, 8 + t] += (-1) ** j * 40
+        else:                   # the first MAT run, 5 long, made 9
+            t, lane, typ, n = w.cells[-2]
+            assert (typ, n) == (MAT, 5)
+            packed[j, t, lane] = MAT | 9 << 3
+    out = _k2_equal_plain(batch, packed, cuda_device)
+    assert bool(out.meta[:, 1].all())
+    assert int(out.meta[:, 0].max()) > 0
+
+
+def test_k2_one_wave_at_a_full_group(cuda_device):
+    """A 1024-window group is 128 CTAs of 8 windows, one CTA an SM."""
+    plan = tb_cuda.launch_plan(1024, 1407)
+    assert plan.ctas <= torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert tb_cuda.occupancy(1024, 1407) >= 1
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))

@@ -48,8 +48,9 @@ MODULES = [
     "npore_tpu_torch.engine.realigner",
     "npore_tpu_torch.cli.realign",
     "npore_tpu_torch.scripts.probe_cond",
-    "npore_tpu_torch.scripts.k1_ab",
+    "npore_tpu_torch.scripts.kernel_ab",
     "npore_tpu_torch.testing.synth",
+    "npore_tpu_torch.testing.planes",
 ]
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in

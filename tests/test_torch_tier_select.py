@@ -17,9 +17,10 @@ from npore_tpu_torch.scripts import probe_cond
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (W, Qx, LANES, Q, N): the probe's shape, and ragged lanes with Qx > Q and
-# a wrapping (k - 1) % Q
-SHAPES = {"probe": (32, 16, 128, 16, 256), "ragged": (7, 20, 96, 10, 300)}
+# (W, Qx, LANES, Q, N): the probe's shape; ragged lanes with Qx > Q and a
+# wrapping (k - 1) % Q; and five warps a row whose tier votes differ
+SHAPES = {"probe": (32, 16, 128, 16, 256), "ragged": (7, 20, 96, 10, 300),
+          "split": (4, 16, 160, 12, 100)}
 
 
 def numpy_reference(x, n_steps, q, run0=None):
@@ -40,7 +41,9 @@ def numpy_reference(x, n_steps, q, run0=None):
 
 def make_input(name, seed=0):
     """The probe's arange % 97 input, or seeded values (one at the
-    sentinel) with start counts that mix both tiers in a row."""
+    sentinel) with start counts that mix both tiers in a row; in "split"
+    the first warp of each row starts at 0, so in its first steps it takes
+    the low tier while the other warps of the row take the full one."""
     W, qx, lanes, q, n = SHAPES[name]
     if name == "probe":
         x = (np.arange(W * qx * lanes, dtype=np.float32)
@@ -49,7 +52,10 @@ def make_input(name, seed=0):
     rng = np.random.default_rng(seed)
     x = (rng.random((W, qx, lanes), dtype=np.float32) * 200 - 50)
     x[0, 0, 0] = 2e9
-    return x, rng.integers(-50, 50, (W, lanes)).astype(np.int32)
+    run0 = rng.integers(-50, 50, (W, lanes)).astype(np.int32)
+    if name == "split":
+        run0[:, :tier_select_cuda.WARP] = 0
+    return x, run0
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -102,3 +108,44 @@ def test_probe_entry_point_on_cpu(capsys):
     x = probe_cond.probe_input("cpu")
     want, _ = make_input("probe")
     assert np.array_equal(x.numpy(), want)
+
+
+def warp_vote_reference(x, n_steps, q, run0=None):
+    """numpy model of the CUDA kernel's tier choice: the (W, LANES)
+    elements in row-major order, each WARP of them voting once a step
+    whether any has k in 5..12, and taking ladder<12> if so, else the
+    4-rung ladder. Also returns, per step, whether the warps of one row
+    voted differently."""
+    W, _, lanes = x.shape
+    warp = (np.arange(W * lanes) // tier_select_cuda.WARP).reshape(W, lanes)
+    acc = np.zeros((W, lanes), np.float32)
+    run = np.zeros((W, lanes), np.int64) if run0 is None else \
+        run0.astype(np.int64)
+    split = []
+    for i in range(n_steps):
+        k = (run % 23) + (i % 7)
+        vote = np.zeros(warp.max() + 1, bool)
+        np.logical_or.at(vote, warp.ravel(), ((k > 4) & (k <= 12)).ravel())
+        need = vote[warp]
+        split.append(bool((need.any(axis=1) & ~need.all(axis=1)).any()))
+        top = np.where(need, 12, 4)
+        cv = np.full((W, lanes), 1e9, np.float32)
+        for kk in range(1, 13):
+            cv = np.where((k == kk) & (kk <= top), x[:, (kk - 1) % q, :], cv)
+        acc += np.where(cv < 1e9, cv, 0.0)
+        run += 1
+    return acc, split
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_warp_vote_equals_plain(name):
+    """The per-warp tier vote gives the plain (untiered) sums bit for bit,
+    also where the warps of one row take different tiers."""
+    x, run0 = make_input(name)
+    _, _, _, q, n = SHAPES[name]
+    got, split = warp_vote_reference(x, n, q, run0)
+    want = tier_select_plain(torch.from_numpy(x), n, q, None if run0 is None
+                             else torch.from_numpy(run0))
+    assert np.array_equal(got, want.numpy())
+    if name == "split":
+        assert any(split)
