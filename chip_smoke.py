@@ -48,7 +48,25 @@ Phases:
      K3 at N=0 at the probe's shape (a launch that does no step), with and
      without the host's launch; then the K3 path, the
      probe's entry point ``npore_tpu_torch.scripts.probe_cond.main()``;
- 10. a JSON line of kernels (launches on their path, error, times, and the
+ 10. [std fixture] standardize_vcf --engine cuda and --engine golden on
+     tests/data/test_std_vcf.vcf: the same VCF text;
+ 11. [std parity] standardize_vcf --engine cuda on a seeded 100 kb contig
+     and its truth VCF: every haplotype's CIGAR equal to the C++ golden
+     aligner's;
+ 12. [std scale] standardize_vcf --engine cuda on a seeded 20 Mbp contig x
+     2 haplotypes (the JAX package's hardware run, a third of chr20): wall
+     seconds, the NPORE_TIMING stage split, windows, groups, K1/K2
+     launches, bails, records out, peak host RSS, device memory and pinned
+     host memory (which must stay within the engine's GROUPS_IN_FLIGHT
+     groups); 8 seeded windows each equal to the golden aligner on that
+     window's own sub-alignment; K1 and K2 timed on one 104 x 20,000-row
+     group of the run, with the bounds of that group and of the run;
+ 13. [bed] the BED CLI on the same contig, --max_n 6, 1 and then 4
+     processes: byte-identical files; wall seconds and regions per n;
+ 14. [purity] bam_purity with the Gini moments on the card equal to the
+     host path on tests/data/reads.bam (1e-12), and gini_moments_device on
+     4M seeded columns equal to a numpy int64 reference, timed;
+ 15. a JSON line of kernels (launches on their path, error, times, and the
      least time the card could take for the same work), then the device
      line last.
 
@@ -60,6 +78,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import resource
 import subprocess
 import sys
 import tempfile
@@ -91,6 +110,13 @@ QUEUE_CYCLES = 2_000_000   # ~1 ms of device sleep ahead of a queued call
 # max_b_rows cuts from synthetic reads of (min, max) length
 LONG = (6, 10400, 10800)    # (windows, min, max read length)
 LONG_ROWS = 20000
+# standardize_vcf inputs: (contig bases, seed) of the parity contig and of
+# the whole-contig run (the JAX package's 20 Mbp hardware run)
+STD_PARITY = (100_000, 21)
+STD_SCALE = (20_000_000, 20)
+STD_SAMPLES = 8             # windows of the scale run checked on their own
+BED_PROCESSES = (1, 4)
+GINI_COLUMNS = 1 << 22
 
 
 def nvidia_smi() -> str:
@@ -321,6 +347,319 @@ def sam_parity(got_path: str, want_path: str) -> int:
         gf, wf = g.split("\t"), w.split("\t")
         same += gf[:11] == wf[:11] and set(gf[11:]) == set(wf[11:])
     return same
+
+
+def write_contig(d: str, name: str, n_bases: int, seed: int):
+    """A seeded contig (``testing.synth.make_genome``'s) and its phased
+    truth VCF (``testing.synth.truth_variants``: ~1 site a kb, 15% of them
+    n-polymer indels) as FASTA and .vcf.gz files in ``d``."""
+    import numpy as np
+    from npore_tpu_torch.io.fasta import write_fasta
+    from npore_tpu_torch.io.vcf import make_header, write_vcf
+    from npore_tpu_torch.testing import synth
+    rng = np.random.default_rng(seed)
+    genome, runs = synth.genome_with_runs(rng, n_bases)
+    recs = synth.truth_variants(rng, name, genome, runs)
+    ref = os.path.join(d, f"{name}.fasta")
+    vcf = os.path.join(d, f"{name}.vcf.gz")
+    write_fasta(ref, {name: genome})
+    write_vcf(vcf, make_header([(name, n_bases)]), recs)
+    return ref, vcf, len(recs)
+
+
+def peak_rss() -> int:
+    """Peak resident bytes of this process so far (ru_maxrss)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def std_argv(vcf: str, ref: str, pre: str, stats: str, engine: str):
+    return ["--vcf", vcf, "--ref", ref, "--out_prefix", pre,
+            "--stats_dir", stats, "--engine", engine]
+
+
+def vcf_records(path: str) -> list:
+    import gzip
+    with gzip.open(path, "rt") as fh:
+        return [line for line in fh if not line.startswith("#")]
+
+
+def std_fixture(tmp: str, stats: str) -> dict:
+    """standardize_vcf with K1/K2 and with the golden engine on the
+    checked-in fixture: the same VCF text."""
+    import gzip
+    from npore_tpu_torch.cli import standardize_vcf as std
+    from npore_tpu_torch.ops import dp_cuda, tb_cuda
+    data = os.path.join(REPO, "tests", "data")
+    t = {}
+    for engine in ("cuda", "golden"):
+        pre = os.path.join(tmp, f"fixture_{engine}")
+        dp_cuda.launches = tb_cuda.launches = 0
+        rl = std.run(std_argv(os.path.join(data, "test_std_vcf.vcf"),
+                              os.path.join(data, "test_std_ref.fasta"),
+                              pre, stats, engine))
+        with gzip.open(pre + ".vcf.gz", "rt") as fh:
+            t[engine] = fh.read()
+        t[f"{engine}_launches"] = (dp_cuda.launches, tb_cuda.launches)
+        t[f"{engine}_bails"] = rl.bail_count
+    same = t["cuda"] == t["golden"]
+    n = len([l for l in t["cuda"].splitlines() if not l.startswith("#")])
+    print(f"[std fixture] --engine cuda and golden: VCF text equal {same}, "
+          f"{n} records, K1/K2 launches {t['cuda_launches']}, bails "
+          f"{t['cuda_bails']}", flush=True)
+    if not same or n < 4:
+        raise AssertionError("standardize_vcf --engine cuda differs from "
+                             "--engine golden on the fixture")
+    if min(t["cuda_launches"]) < 1:
+        raise AssertionError("standardize_vcf did not launch K1 and K2")
+    return t
+
+
+def std_parity(tmp: str, stats: str, sub_scores, np_scores, cfg) -> None:
+    """standardize_vcf --engine cuda on a seeded contig: every haplotype's
+    CIGAR equal to the C++ golden aligner's for the same alignment."""
+    import torch
+    from npore_tpu_torch.cli import standardize_vcf as std
+    from npore_tpu_torch.native import golden_align_native
+    from npore_tpu_torch.ops import dp_cuda, tb_cuda
+    ref, vcf, n_truth = write_contig(tmp, "parity", *STD_PARITY)
+    done = std.Realigned()
+    dp_cuda.launches = tb_cuda.launches = 0
+    t0 = time.perf_counter()
+    rl = std.run(std_argv(vcf, ref, os.path.join(tmp, "parity"), stats,
+                          "cuda"), done)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = (dp_cuda.launches, tb_cuda.launches)
+    same = sum(golden_align_native(it.ref, it.seq, it.cigar, sub_scores,
+                                   np_scores, cfg) == cig
+               for it, cig in zip(done.items, done.cigars))
+    eng = rl._engine
+    print(f"[std parity] {STD_PARITY[0]} bases, {n_truth} truth records: "
+          f"{same}/{len(done.items)} haplotype CIGARs equal the golden "
+          f"aligner's; {eng.windows} windows, {eng.groups} groups, K1/K2 "
+          f"launches {launches}, bails {rl.bail_count}, {secs:.2f}s",
+          flush=True)
+    if same != len(done.items) or not done.items:
+        raise AssertionError("standardize_vcf --engine cuda differs from "
+                             "the golden aligner")
+    if min(launches) < 1:
+        raise AssertionError("standardize_vcf did not launch K1 and K2")
+
+
+def k2_run_bound(cigars, n_windows: int) -> dict:
+    """``k2_bound`` over whole-alignment CIGARs: their runs (a window cut
+    inside a run starts another, so this counts at most the runs walked),
+    MAT ops and bytes, and 16 bytes of counts a window."""
+    import numpy as np
+    runs = mats = used = 0
+    for c in cigars:
+        a = np.frombuffer(c.encode("ascii"), dtype=np.uint8)
+        cls = (a == ord("I")) * 1 + (a == ord("D")) * 2
+        runs += int((cls[1:] != cls[:-1]).sum()) + (len(a) > 0)
+        mats += int((cls == 0).sum())
+        used += len(a)
+    return bound(8 * runs + 2 * mats + used + 16 * n_windows, 0)
+
+
+def std_scale(tmp: str, stats: str, sub_scores, np_scores, cfg,
+              tables) -> dict:
+    """standardize_vcf --engine cuda on a whole seeded contig x 2
+    haplotypes; see phase 12 of the module docstring."""
+    import numpy as np
+    import torch
+    from npore_tpu_torch.cli import standardize_vcf as std
+    from npore_tpu_torch.engine import cuda_engine
+    from npore_tpu_torch.engine.windows import (build_windows, group_layout,
+                                                group_nbytes, pack_group,
+                                                tensor_views)
+    from npore_tpu_torch.ops import dp_cuda, tb_cuda
+    from npore_tpu_torch.testing import chunks
+    n_bases, seed = STD_SCALE
+    t0 = time.perf_counter()
+    ref, vcf, n_truth = write_contig(tmp, "contig1", n_bases, seed)
+    print(f"[std scale] input: {n_bases} bases x 2 haplotypes, {n_truth} "
+          f"truth records, made in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    pre = os.path.join(tmp, "scale")
+    done = std.Realigned()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_host_memory_stats()
+    pinned0 = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    rss0 = peak_rss()
+    dp_cuda.launches = tb_cuda.launches = 0
+    os.environ["NPORE_TIMING"] = "1"
+    try:
+        t0 = time.perf_counter()
+        rl = std.run(std_argv(vcf, ref, pre, stats, "cuda"), done)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["NPORE_TIMING"]
+    k1_launches, k2_launches = dp_cuda.launches, tb_cuda.launches
+    host = torch.cuda.host_memory_stats()
+    eng = rl._engine
+
+    # the run's windows and groups, cut as the engine cut them
+    wins = []
+    for i, it in enumerate(done.items):
+        wins += build_windows(it.ref, it.seq, it.cigar, cfg, aln_idx=i)
+    wins.sort(key=lambda w: w.b_rows)
+    groups = list(eng._groups(wins))
+    shapes = [(len(g), max(w.b_rows for w in g)) for g in groups]
+    group_bytes = max(group_nbytes(group_layout(B, R, cfg.max_n))
+                      for B, R in shapes)
+    res_bytes = max(len(g) * (8 + max(w.n_ins + w.n_del for w in g))
+                    for g in groups)
+    pow2 = lambda x: 1 << (int(x) - 1).bit_length()   # the pinned pool's
+    pinned_limit = (cuda_engine.GROUPS_IN_FLIGHT + 2) * (
+        pow2(group_bytes) + pow2(res_bytes))
+    t = {"wall_s": wall, "windows": eng.windows, "groups": eng.groups,
+         "group_shapes": sorted(set(shapes)),
+         "k1_launches": k1_launches, "k2_launches": k2_launches,
+         "bail_count": rl.bail_count,
+         "records_out": len(vcf_records(pre + ".vcf.gz")),
+         "truth_records": n_truth,
+         "peak_rss_bytes": peak_rss(),      # the run's, if above the
+         "peak_rss_before_bytes": rss0,     # process's peak before it
+         "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "pinned_peak_bytes": host["allocated_bytes.peak"],
+         "pinned_before_bytes": pinned0,
+         "pinned_limit_growth_bytes": pinned_limit,
+         "groups_in_flight": cuda_engine.GROUPS_IN_FLIGHT,
+         "device_wait_s": eng.wait_s}
+    print("[std scale] " + json.dumps(t), flush=True)
+    if (eng.windows, eng.groups) != (len(wins), len(groups)):
+        raise AssertionError("the engine's windows and groups differ from "
+                             "the run's")
+    if not k1_launches == k2_launches == len(groups):
+        raise AssertionError("standardize_vcf did not launch K1 and K2 "
+                             "once a group")
+    if t["pinned_peak_bytes"] - pinned0 > pinned_limit:
+        raise AssertionError("pinned host memory grew past "
+                             f"{cuda_engine.GROUPS_IN_FLIGHT} groups in "
+                             "flight")
+    if t["records_out"] < 1:
+        raise AssertionError("standardize_vcf wrote no records")
+
+    # STD_SAMPLES windows, each against the golden aligner on its own
+    keys = [w.key for w in wins]
+    pick = np.random.default_rng(seed).choice(len(keys), STD_SAMPLES,
+                                              replace=False)
+    paths, same, t0 = {}, 0, time.perf_counter()
+    for i, ci in sorted(keys[k] for k in pick):
+        it = done.items[i]
+        if i not in paths:
+            paths = {i: (chunks.path_of(it.cigar),)
+                     + chunks.breaks_of(it.cigar, cfg)}
+        want, ends = chunks.golden_window(it.ref, it.seq, *paths[i], ci,
+                                          sub_scores, np_scores, cfg)
+        same += chunks.chunk_of(done.cigars[i], *ends) == want
+    print(f"[std scale] sampled windows equal to the golden aligner on "
+          f"their own sub-alignments: {same}/{STD_SAMPLES} "
+          f"({time.perf_counter() - t0:.2f}s)", flush=True)
+    if same != STD_SAMPLES:
+        raise AssertionError("a window of the whole-contig run differs "
+                             "from the golden aligner")
+    del paths
+
+    # K1 and K2 on the run's fullest group of long windows
+    g = max(groups, key=lambda g: (len(g), min(w.b_rows for w in g)))
+    R = max(w.b_rows for w in g)
+    buf, layout = pack_group(g, R, cfg.max_n)
+    dev = next(iter(tables.values())).device
+    batch = tensor_views(torch.from_numpy(buf).to(dev), layout)
+    L = max(w.n_ins + w.n_del for w in g)
+    packed = dp_cuda.band_dp(batch, tables, cfg)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    grp = {"B": len(g), "R": R, "min_rows": min(w.b_rows for w in g)}
+    grp["k1_ms"], _ = median_ms(lambda: dp_cuda.band_dp(batch, tables, cfg))
+    grp["k1_device_ms"], _ = median_ms(
+        lambda: dp_cuda.band_dp(batch, tables, cfg), queued=True)
+
+    def k2():
+        return tb_cuda.traceback(packed, batch, cfg, L)
+    grp["k2_ms"], out = median_ms(k2)
+    grp["k2_cold_ms"], _ = median_ms(k2, flush=flush)
+    grp["k2_cold_device_ms"], _ = median_ms(k2, flush=flush, queued=True)
+    grp["k2_bails"] = int(out.meta[:, 1].sum())
+    grp["k1_bound"] = k1_bound(g, batch, tables, cfg, packed)
+    grp["k2_bound"] = k2_bound(g, out)
+    # the run's bounds: every group's buffer, tables and planes for K1
+    tab_bytes = sum(v.numel() * v.element_size() for v in tables.values())
+    plane_bytes = packed.numel() * packed.element_size() // (len(g) * R)
+    grp["k1_run_bound"] = bound(
+        sum(group_nbytes(group_layout(B, R_, cfg.max_n)) + tab_bytes
+            + B * R_ * plane_bytes for B, R_ in shapes),
+        11 * sum(w.b_rows for w in wins) * (cfg.band_width - 2))
+    grp["k2_run_bound"] = k2_run_bound(done.cigars, len(wins))
+    print("[std group] " + json.dumps(grp), flush=True)
+    t["group"] = grp
+    return t
+
+
+def bed_phase(tmp: str, ref: str, n_bases: int) -> None:
+    """The BED CLI on the scale contig with 1 and then 4 processes."""
+    from npore_tpu_torch.cli import bed
+    genome = os.path.join(tmp, "contig1.bed")
+    with open(genome, "w") as fh:
+        fh.write(f"contig1\t0\t{n_bases}\n")
+    files, secs = {}, {}
+    for procs in BED_PROCESSES:
+        d = os.path.join(tmp, f"bed{procs}")
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        bed.main(["--ref", ref, "--bed", genome, "--out_prefix",
+                  os.path.join(d, "np"), "--max_n", "6", "--processes",
+                  str(procs)])
+        secs[procs] = time.perf_counter() - t0
+        files[procs] = {}
+        for name in sorted(os.listdir(d)):
+            with open(os.path.join(d, name), "rb") as fh:
+                files[procs][name] = fh.read()
+    same = all(files[p] == files[BED_PROCESSES[0]] for p in BED_PROCESSES)
+    regions = {k: v.count(b"\n") for k, v in files[BED_PROCESSES[0]].items()}
+    print(f"[bed] {n_bases} bases, --max_n 6: files identical across "
+          f"processes {BED_PROCESSES}: {same}; wall s "
+          f"{json.dumps(secs)}; regions {json.dumps(regions)}", flush=True)
+    if not same or len(regions) != 8 or not regions["np_1.bed"]:
+        raise AssertionError("the BED CLI's files differ across process "
+                             "counts")
+
+
+def purity_phase(device) -> dict:
+    """Purity with the Gini moments on the card against the host path, and
+    the moments alone on GINI_COLUMNS seeded columns."""
+    import numpy as np
+    import torch
+    from npore_tpu_torch.cli import purity
+    bam = os.path.join(REPO, "tests", "data", "reads.bam")
+    host = purity.bam_purity(bam, None, None, None, 13, processes=1)
+    dev = purity.bam_purity(bam, None, None, None, 13, processes=1,
+                            device=True)
+    err = float(np.abs(host - dev).max()) if host.shape == dev.shape \
+        else float("inf")
+    rng = np.random.default_rng(5)
+    b = rng.integers(0, 256, (GINI_COLUMNS, 5), dtype=np.int32)
+    iv = rng.integers(0, 32, (GINI_COLUMNS, purity.INS_SLOTS),
+                      dtype=np.int32)
+    b64, i64 = b.astype(np.int64), iv.astype(np.int64)
+    want = (b64.sum(1), (b64 * b64).sum(1), b64.sum(1) - i64.sum(1),
+            (i64 * i64).sum(1))
+    t = {"columns": len(host), "max_abs_err": err}
+    t["ms"], got = median_ms(lambda: purity.gini_moments_device(b, iv))
+    on_card = [torch.from_numpy(x).to(device) for x in (b, iv)]
+    t["device_ms"], _ = median_ms(
+        lambda: purity.gini_moments_device(*on_card), queued=True)
+    t["moments_equal"] = all(g.dtype == np.int32 and np.array_equal(g, w)
+                             for g, w in zip(got, want))
+    t["moment_columns"] = GINI_COLUMNS
+    print("[purity] " + json.dumps(t), flush=True)
+    if err > 1e-12 or not len(host):
+        raise AssertionError("the device Gini differs from the host path")
+    if not t["moments_equal"]:
+        raise AssertionError("gini_moments_device differs from numpy")
+    return t
 
 
 def main() -> int:
@@ -588,6 +927,16 @@ def main() -> int:
     if k3_launches < 1:
         raise AssertionError("the probe did not launch K3")
 
+    # --- 10-14. the downstream tools ---
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_std_")
+    std_fixture(tmp.name, stats)
+    std_parity(tmp.name, stats, sub_scores, np_scores, cfg)
+    scale = std_scale(tmp.name, stats, sub_scores, np_scores, cfg, tables)
+    bed_phase(tmp.name, os.path.join(tmp.name, "contig1.fasta"),
+              STD_SCALE[0])
+    purity_phase(dev)
+    tmp.cleanup()
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m == "npore_tpu" or m.startswith("npore_tpu."))
     if loaded:
@@ -606,7 +955,13 @@ def main() -> int:
          "plain_ms": fx["k1_plain_ms"],
          "bound_ms": fx["k1_bound"]["bound_ms"],
          "bound_by": fx["k1_bound"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "std_scale": {"launches": scale["k1_launches"],
+                       "group_ms": scale["group"]["k1_ms"],
+                       "group_bound_ms":
+                           scale["group"]["k1_bound"]["bound_ms"],
+                       "run_bound_ms":
+                           scale["group"]["k1_run_bound"]["bound_ms"]}},
         {"name": "traceback", "route": "cuda",
          "source": "npore_tpu_torch/csrc/traceback.cu",
          "replaces": "npore_tpu/ops/pallas_dp.py:981",
@@ -619,7 +974,13 @@ def main() -> int:
          "plain_ms": fx["k2_plain_ms"],
          "bound_ms": fx["k2_bound"]["bound_ms"],
          "bound_by": fx["k2_bound"]["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "std_scale": {"launches": scale["k2_launches"],
+                       "group_ms": scale["group"]["k2_cold_ms"],
+                       "group_bound_ms":
+                           scale["group"]["k2_bound"]["bound_ms"],
+                       "run_bound_ms":
+                           scale["group"]["k2_run_bound"]["bound_ms"]}},
         {"name": "tier_select", "route": "cuda",
          "source": "npore_tpu_torch/csrc/tier_select.cu",
          "replaces": "scripts/probe_cond.py:50",

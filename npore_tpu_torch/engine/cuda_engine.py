@@ -9,7 +9,11 @@ CIGAR bytes and bail flags come back in one copy.
 With ``plain=False`` (the ``cuda`` engine) the group runs kernels K1 and K2
 on a stream of the engine's own: ``align_batch_async`` only enqueues work
 (pinned buffers, non-blocking copies, an event per group), so the
-Realigner's pipeline overlaps host work with the device. With
+Realigner's pipeline overlaps host work with the device. At most
+``GROUPS_IN_FLIGHT`` groups of a call wait on the device: a call with more
+(a whole contig of ``standardize_vcf``) collects its oldest group before it
+submits the next, so the pinned host buffers stay bounded by that count,
+not by the call's size. With
 ``plain=True`` (the ``torch`` engine) the group runs the plain PyTorch DP
 and traceback on the engine's device, synchronously.
 
@@ -22,6 +26,9 @@ cannot overflow, and nothing is compiled per shape.
 """
 from __future__ import annotations
 
+import threading
+from collections import deque
+from time import perf_counter
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +46,9 @@ from .windows import (Window, build_windows, group_layout, group_nbytes,
 GROUP_WINDOWS = 1024            # windows per group (one CTA each in K1)
 GROUP_CELLS = 1 << 21           # windows x rows per group: bounds the
                                 # (B, R, 64) int32 planes at 512 MiB
+GROUPS_IN_FLIGHT = 4            # submitted, uncollected groups per call:
+                                # bounds the pinned buffers (~62 MB a group
+                                # of 20,000-row windows)
 
 
 class CudaEngine:
@@ -55,6 +65,10 @@ class CudaEngine:
                                         self.device)
         self.group_windows = GROUP_WINDOWS
         self.bail_count = 0
+        self.windows = 0        # windows and groups run, and the seconds
+        self.groups = 0         # spent waiting on the device for results
+        self.wait_s = 0.0
+        self._wait_lock = threading.Lock()   # a submit and a collect thread
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
 
@@ -71,8 +85,15 @@ class CudaEngine:
             windows.extend(build_windows(it.ref, it.seq, it.cigar, self.cfg,
                                          aln_idx=i))
         windows.sort(key=lambda w: w.b_rows)
-        pending = [(g, self._submit(g)) for g in self._groups(windows)]
-        return lambda: self._finish(items, pending)
+        self.windows += len(windows)
+        done, pending = [], deque()
+        for g in self._groups(windows):
+            if len(pending) == GROUPS_IN_FLIGHT:
+                done.append(self._collect(*pending.popleft()))
+            pending.append((g, self._submit(g)))
+            self.groups += 1
+        return lambda: self._finish(
+            items, done + [self._collect(*p) for p in pending])
 
     def _groups(self, windows: Sequence[Window]):
         """Cut row-sorted windows into groups bounded by count and cells."""
@@ -116,25 +137,28 @@ class CudaEngine:
         packed = dp_cuda.band_dp(batch, self.tables, cfg)
         return tb_cuda.traceback(packed, batch, cfg, L)
 
-    def _collect(self, group: Sequence[Window], handle
-                 ) -> List[Tuple[str, bool]]:
+    def _collect(self, group: Sequence[Window], handle):
+        """The group's windows with their (CIGAR, bail) pairs."""
         res, L, done = handle
         if done is not None:
+            t0 = perf_counter()
             done.synchronize()
+            with self._wait_lock:
+                self.wait_s += perf_counter() - t0
         B = len(group)
         raw = res.numpy()
         meta = raw[:8 * B].view(np.int32).reshape(B, 2)
         cig = raw[8 * B:].reshape(B, L)
         ends = np.fromiter((w.n_ins + w.n_del for w in group), np.int64, B)
         cigs, bails = decode(meta, cig, ends)
-        return list(zip(cigs, bails))
+        return group, list(zip(cigs, bails))
 
-    def _finish(self, items, pending) -> List[str]:
+    def _finish(self, items, collected) -> List[str]:
         cfg = self.cfg
         chunk_cigars: Dict[Tuple[int, int], str] = {}
         bailed = set()
-        for group, handle in pending:
-            for w, (cig, bail) in zip(group, self._collect(group, handle)):
+        for group, results in collected:
+            for w, (cig, bail) in zip(group, results):
                 if bail:
                     bailed.add(w.key[0])
                 chunk_cigars[w.key] = cig

@@ -200,3 +200,39 @@ def test_k3_equal_plain(cuda_device, name):
     assert torch.equal(got, tier_select_plain(xt, n, q, r0))
     with pytest.raises(ValueError):
         tier_select_cuda.tier_select(xt, n, q + 100)
+
+
+def test_standardize_vcf_cuda_equals_golden(cuda_device, tmp_path, data_dir,
+                                            stats_dir):
+    """standardize_vcf with K1 and K2 writes the golden engine's files."""
+    import gzip
+    import os
+    from npore_tpu_torch.cli import standardize_vcf as tstd
+    argv = ["--vcf", os.path.join(data_dir, "test_std_vcf.vcf"),
+            "--ref", os.path.join(data_dir, "test_std_ref.fasta"),
+            "--stats_dir", stats_dir]
+    pres = {}
+    for engine in ("cuda", "golden"):
+        pres[engine] = str(tmp_path / engine)
+        n1 = dp_cuda.launches
+        rl = tstd.run(argv + ["--out_prefix", pres[engine], "--engine",
+                              engine])
+        assert rl.bail_count == 0
+        assert (dp_cuda.launches > n1) == (engine == "cuda")
+    for suffix in (".vcf.gz", ".vcf.gz.tbi", "1.vcf.gz", "2.vcf.gz"):
+        with open(pres["cuda"] + suffix, "rb") as a, \
+                open(pres["golden"] + suffix, "rb") as b:
+            assert a.read() == b.read(), suffix
+    with gzip.open(pres["cuda"] + ".vcf.gz", "rt") as fh:
+        assert sum(1 for l in fh if not l.startswith("#")) >= 4
+
+
+def test_gini_moments_cuda_equal_cpu(cuda_device):
+    from npore_tpu_torch.cli.purity import INS_SLOTS, gini_moments_device
+    rng = np.random.default_rng(6)
+    b = rng.integers(0, 9201, (100_000, 5)).astype(np.int32)
+    iv = rng.integers(0, 1000, (100_000, INS_SLOTS)).astype(np.int32)
+    got = gini_moments_device(b, iv)
+    want = gini_moments_device(b, iv, "cpu")
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32 and np.array_equal(g, w)

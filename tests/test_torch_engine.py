@@ -108,6 +108,44 @@ def test_torch_engine_small_groups(score_matrices):
                                  np_scores, SMALL)
 
 
+@pytest.mark.parametrize("limit", [1, 2])
+def test_groups_in_flight_are_bounded(score_matrices, monkeypatch, limit):
+    """A call with more groups than GROUPS_IN_FLIGHT collects its oldest
+    group before it submits the next: the CIGARs equal an unbounded run's,
+    and no more than ``limit`` groups are ever submitted and uncollected."""
+    from npore_tpu_torch.engine import cuda_engine
+    sub_scores, np_scores, _, _ = score_matrices
+    items = _items(random_cases(seed=11))
+
+    def run(groups_in_flight):
+        monkeypatch.setattr(cuda_engine, "GROUPS_IN_FLIGHT",
+                            groups_in_flight)
+        eng = cuda_engine.CudaEngine(sub_scores, np_scores, SMALL,
+                                     plain=True)
+        eng.group_windows = 3
+        held = [0, 0]                            # now, most
+        submit, collect = eng._submit, eng._collect
+
+        def counted_submit(group):
+            held[0] += 1
+            held[1] = max(held)
+            return submit(group)
+
+        def counted_collect(group, handle):
+            held[0] -= 1
+            return collect(group, handle)
+        eng._submit, eng._collect = counted_submit, counted_collect
+        cigars = eng.align_batch_async(items)()
+        assert held[0] == 0
+        return cigars, held[1], eng.groups
+
+    want, most, groups = run(10 ** 6)
+    assert groups > limit + 2 and most == groups
+    got, most, _ = run(limit)
+    assert most == limit
+    assert got == want
+
+
 @pytest.mark.parametrize("engine", ["torch", "cuda"])
 def test_engine_rejects_max_l_past_tables(score_matrices, engine):
     """n-polymer lengths past the tables' 101 rows would wrap the int8

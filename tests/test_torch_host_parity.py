@@ -1,10 +1,11 @@
 """The port's copies of the host modules (npore_tpu_torch/{config,
 constants,native,io,golden,model,engine/regions,engine/stats,
-ops/npinfo_host,testing/synth}) give bit-identical outputs to their
+ops/npinfo_host,testing/synth}, io/vcf and golden/debug included) give bit-identical outputs to their
 ``npore_tpu`` originals on the same seeded inputs. Each side gets its own
 package's objects (configs, records); only numpy arrays and strings cross.
 """
 import dataclasses
+import importlib.util
 import os
 
 import numpy as np
@@ -12,12 +13,14 @@ import pytest
 
 import npore_tpu.config as jcfg
 import npore_tpu.constants as jconst
+import npore_tpu.golden.debug as jdbg
 import npore_tpu.golden.npinfo as jgnp
 import npore_tpu.io.bam as jbam
 import npore_tpu.io.bam_writer as jbw
 import npore_tpu.io.cigar as jcig
 import npore_tpu.io.fasta as jfa
 import npore_tpu.io.sam as jsam
+import npore_tpu.io.vcf as jvcf
 import npore_tpu.model.scores as jsc
 import npore_tpu.native as jnat
 import npore_tpu.ops.npinfo_host as jnph
@@ -27,12 +30,14 @@ from npore_tpu.golden.align import align as j_align
 from npore_tpu.golden.align import get_breaks as j_breaks
 import npore_tpu_torch.config as tcfg
 import npore_tpu_torch.constants as tconst
+import npore_tpu_torch.golden.debug as tdbg
 import npore_tpu_torch.golden.npinfo as tgnp
 import npore_tpu_torch.io.bam as tbam
 import npore_tpu_torch.io.bam_writer as tbw
 import npore_tpu_torch.io.cigar as tcig
 import npore_tpu_torch.io.fasta as tfa
 import npore_tpu_torch.io.sam as tsam
+import npore_tpu_torch.io.vcf as tvcf
 import npore_tpu_torch.model.scores as tsc
 import npore_tpu_torch.native as tnat
 import npore_tpu_torch.ops.npinfo_host as tnph
@@ -314,3 +319,128 @@ def test_synth_equals_generate_data():
             assert (synth.md_tag(ref_a, got[0], got[2])
                     == generate_data.md_tag(ref_b, want[0], want[2]))
             assert int(a.integers(0, 3)) == int(b.integers(0, 3))
+
+
+def test_synth_genome_equals_genome_scale():
+    """The port's whole-contig generator draws the contig of
+    scripts/genome_scale.py (loaded by file path) from the same seed."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "genome_scale.py")
+    spec = importlib.util.spec_from_file_location("genome_scale", path)
+    gs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gs)
+    for seed, n in ((11, 20000), (12, 4321)):
+        got = synth.make_genome(np.random.default_rng(seed), n)
+        assert got == gs.make_genome(np.random.default_rng(seed), n)
+        genome, runs = synth.genome_with_runs(np.random.default_rng(seed), n)
+        assert genome == got and len(runs) > n // 300
+        for s, p, reps in runs[:-1]:         # the last may be cut short
+            run = genome[s:s + p * reps]
+            assert run == run[:p] * reps
+
+
+def test_truth_variants_are_phased_and_disjoint():
+    rng = np.random.default_rng(8)
+    genome, runs = synth.genome_with_runs(rng, 200_000)
+    recs = synth.truth_variants(rng, "c", genome, runs)
+    indels = [r for r in recs if len(r.alleles[0]) != len(r.alleles[1])]
+    assert 150 <= len(recs) <= 200 and 20 <= len(indels) <= 40
+    assert all(r.sample in ("1|0", "0|1", "1|1") for r in recs)
+    assert all(a.stop <= b.pos for a, b in zip(recs, recs[1:]))
+    for r in recs:
+        ref, alt = r.alleles
+        assert genome[r.pos:r.stop] == ref
+        if r in indels:          # whole units of a run, after an anchor
+            assert alt[0] == ref[0] and 1 <= abs(len(ref) - len(alt)) <= 6
+        else:
+            assert len(ref) == len(alt) == 1 and ref != alt
+
+
+@pytest.fixture(scope="module")
+def vcf_inputs(tmp_path_factory, data_dir):
+    """The standardize fixture and a seeded truth set, as both packages'
+    writers write them (their bytes must agree)."""
+    d = tmp_path_factory.mktemp("vcf")
+    rng = np.random.default_rng(9)
+    genome, runs = synth.genome_with_runs(rng, 30_000)
+    recs = synth.truth_variants(rng, "ctg", genome, runs, per_kb=3)
+    head = tvcf.make_header([("ctg", len(genome))])
+    assert head == jvcf.make_header([("ctg", len(genome))])
+    seeded = str(d / "seeded.vcf.gz")
+    tvcf.write_vcf(seeded, head, recs)
+    jvcf.write_vcf(str(d / "jseeded.vcf.gz"), head,
+                   [jvcf.parse_vcf_line(r.to_line()) for r in recs])
+    for suffix in ("", ".tbi"):
+        with open(seeded + suffix, "rb") as a, \
+                open(str(d / "jseeded.vcf.gz") + suffix, "rb") as b:
+            assert a.read() == b.read()
+    return {"fixture": (os.path.join(data_dir, "test_std_vcf.vcf"),
+                        [("chr18", 0, 31), ("chr19", 0, 31)],
+                        os.path.join(data_dir, "test_std_ref.fasta")),
+            "seeded": (seeded, [("ctg", 0, len(genome) - 1)], genome)}
+
+
+def _files_equal(a, b):
+    for suffix in ("", ".tbi") if a.endswith(".gz") else ("",):
+        with open(a + suffix, "rb") as fa, open(b + suffix, "rb") as fb:
+            assert fa.read() == fb.read(), a + suffix
+
+
+@pytest.mark.parametrize("name", ["fixture", "seeded"])
+@pytest.mark.parametrize("fn", ["filter_overlaps", "filter_gt", "split_vcf",
+                                "merge_vcfs", "apply_vcf", "gen_vcf"])
+def test_vcf_tools_equal(tmp_path, vcf_inputs, fn, name):
+    vcf, regions, ref = vcf_inputs[name]
+    get_ref = (lambda ctg: ref) if name == "seeded" else (
+        lambda ctg: tfa.FastaFile(ref).fetch(ctg).upper())
+    t, j = str(tmp_path / "t"), str(tmp_path / "j")
+    assert [r.to_line() for r in tvcf.VcfReader(vcf)] == [
+        r.to_line() for r in jvcf.VcfReader(vcf)]
+    if fn in ("filter_overlaps", "filter_gt"):
+        for suffix in (".vcf", ".vcf.gz"):
+            args = ("1|0",) if fn == "filter_gt" else ()
+            got = getattr(tvcf, fn)(vcf, t + suffix, *args)
+            assert got == getattr(jvcf, fn)(vcf, j + suffix, *args)
+            _files_equal(t + suffix, j + suffix)
+        return
+    t1, t2 = tvcf.split_vcf(vcf, regions, t)
+    j1, j2 = jvcf.split_vcf(vcf, regions, j)
+    _files_equal(t1, j1)
+    _files_equal(t2, j2)
+    if fn == "merge_vcfs":
+        for suffix in (".vcf", ".vcf.gz"):
+            tvcf.merge_vcfs(t1, t2, t + "m" + suffix, regions)
+            jvcf.merge_vcfs(j1, j2, j + "m" + suffix, regions)
+            _files_equal(t + "m" + suffix, j + "m" + suffix)
+        return
+    if fn == "split_vcf":
+        return
+    haps = [tvcf.apply_vcf(t1, 1, regions, get_ref),
+            tvcf.apply_vcf(t2, 2, regions, get_ref)]
+    assert haps == [jvcf.apply_vcf(j1, 1, regions, get_ref),
+                    jvcf.apply_vcf(j2, 2, regions, get_ref)]
+    assert any(len(h[2]) != len(h[3]) for hap in haps for h in hap)
+    if fn == "gen_vcf":
+        for hap, data in enumerate(haps, 1):
+            _files_equal(tvcf.gen_vcf(data, hap, t + "g"),
+                         jvcf.gen_vcf(data, hap, j + "g"))
+
+
+def test_debug_printers_equal(fixture_reads, score_matrices):
+    sub_scores, np_scores, _, _ = score_matrices
+    for r in fixture_reads[1][:3]:
+        ref, seq, cig = r.aln
+        new = tnat.golden_align_native(ref, seq, cig, sub_scores, np_scores,
+                                       tcfg.AlignConfig())
+        for c in (cig.replace("M", "="), new):
+            args = (tconst.int_to_bases(ref), tconst.int_to_bases(seq), c)
+            assert tdbg.render_alignment(*args) == jdbg.render_alignment(
+                *args)
+            assert tdbg.render_alignment(*args, width=50) == \
+                jdbg.render_alignment(*args, width=50)
+    for max_n in (3, 6):
+        for s in _seqs(seed=20 + max_n, n=4):
+            got = tdbg.format_np_info(s, max_n)
+            assert got == jdbg.format_np_info(s, max_n) and "l_idx" in got
+    with pytest.raises(ValueError):
+        tdbg.render_alignment("AC", "AC", "=Q")

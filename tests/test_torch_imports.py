@@ -27,9 +27,11 @@ MODULES = [
     "npore_tpu_torch.io.pileup",
     "npore_tpu_torch.io.bam",
     "npore_tpu_torch.io.bam_native",
+    "npore_tpu_torch.io.vcf",
     "npore_tpu_torch.golden",
     "npore_tpu_torch.golden.npinfo",
     "npore_tpu_torch.golden.align",
+    "npore_tpu_torch.golden.debug",
     "npore_tpu_torch.model.scores",
     "npore_tpu_torch.model.plots",
     "npore_tpu_torch.ops._build",
@@ -47,10 +49,15 @@ MODULES = [
     "npore_tpu_torch.engine.cuda_engine",
     "npore_tpu_torch.engine.realigner",
     "npore_tpu_torch.cli.realign",
+    "npore_tpu_torch.cli.standardize_vcf",
+    "npore_tpu_torch.cli.bed",
+    "npore_tpu_torch.cli.filter",
+    "npore_tpu_torch.cli.purity",
     "npore_tpu_torch.scripts.probe_cond",
     "npore_tpu_torch.scripts.kernel_ab",
     "npore_tpu_torch.testing.synth",
     "npore_tpu_torch.testing.planes",
+    "npore_tpu_torch.testing.chunks",
 ]
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
@@ -112,6 +119,32 @@ def test_cli_in_fresh_interpreter_loads_no_jax(tmp_path, data_dir,
     assert out == {"rc": 0, "loaded": []}
     with open(tmp_path / "o.sam") as fh:
         assert sum(1 for line in fh if not line.startswith("@")) == 10
+
+
+@pytest.mark.parametrize("cli", ["standardize_vcf", "bed", "filter",
+                                 "purity"])
+def test_cli_help_loads_no_jax(cli):
+    """``python -m npore_tpu_torch.cli.<cli> --help`` in a fresh
+    interpreter: it prints its usage and loads neither jax nor
+    npore_tpu."""
+    code = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['x', '--help']\n"
+        "try:\n"
+        f"    runpy.run_module('npore_tpu_torch.cli.{cli}', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'npore_tpu' or "
+        "m.startswith('npore_tpu.'))\n"
+        "print(json.dumps({'rc': rc, 'loaded': bad}))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[0].startswith("usage:")
+    assert json.loads(lines[-1]) == {"rc": 0, "loaded": []}
 
 
 @pytest.fixture(scope="module")
