@@ -22,7 +22,8 @@ Phases:
   7. throughput: the fixture replicated x256 (batch 1024) and the mixed
      set, each streamed 5 times (median, min and max reads/s, K1/K2
      launches per pass); kernel and plain-version times at those groups'
-     shapes (CUDA events, median of 5; kernels after one warm-up call),
+     shapes (CUDA events, median of 5, the plain DP's of 3; kernels after
+     one warm-up call),
      with the kernels' outputs required equal to the plain versions' there
      too, and each kernel's bound there. K2 is timed warm (``k2_ms``: the
      same planes relaunched, hot in L2) and cold (``k2_cold_ms``: a 64 MB
@@ -66,12 +67,36 @@ Phases:
  14. [purity] bam_purity with the Gini moments on the card equal to the
      host path on tests/data/reads.bam (1e-12), and gini_moments_device on
      4M seeded columns equal to a numpy int64 reference, timed;
- 15. a JSON line of kernels (launches on their path, error, times, and the
-     least time the card could take for the same work), then the device
-     line last.
+ 15. [mesh] (right after phase 8, on its 1024-window fixture group)
+     parallel.mesh.make_sharded_step over make_data_mesh() (every card) and
+     over [cuda:0, cuda:0] (two shards on one card): K1's planes bit-equal
+     to one unsharded K1 call and to the plain DP, op counts equal to a
+     numpy histogram of the planes, one K1 launch a shard; then the same
+     step in a 1-rank NCCL process group started in-process, whose
+     all_reduce gives the counts back unchanged; reduce_confusion_matrices
+     on seeded partials equal to the numpy sums;
+ 16. [dist realign] the realign CLI with --engine cuda --num_hosts 2 as two
+     processes on the card over gloo, on tests/data/reads.bam (one region:
+     read stripes): the merged SAM equals tests/data/npore_realigned.sam
+     (10/10), 0 bails; then --recalc_cms --recalc_exit on 2 ranks saves the
+     *_cm.npy of a 1-process run;
+ 17. [dist scale] a seeded BAM of 4 contigs x 2,000 reads (bench.py's four
+     length buckets) realigned with 1, 2 and 4 ranks on the card, in turns
+     (1, 2, 4, 1, 2, 4): wall and stage seconds, reads/s, efficiency
+     T1 / (N * TN) and each rank's peak device memory; every merged SAM
+     equal to the 1-rank SAM record for record;
+ 18. [purity mesh] gini_moments_device(..., mesh=[cuda:0, cuda:0]) on the
+     4M seeded columns equal to the unsharded call;
+ 19. [dryrun] scripts.dryrun_multichip.main(["--device", "cuda", "--n",
+     "2"]): the sharded step and CudaEngine over [cuda:0, cuda:0],
+     golden-exact;
+ 20. a JSON line of kernels (launches on their path and on the new paths,
+     error, times, and the least time the card could take for the same
+     work), then the device line last.
 
 The script imports nothing of JAX or of ``npore_tpu``: it fails if the run
-loaded ``jax``, ``npore_tpu`` or any ``npore_tpu.*`` module.
+loaded ``jax``, ``npore_tpu`` or any ``npore_tpu.*`` module, and so does
+each rank that phases 16-17 start.
 """
 from __future__ import annotations
 
@@ -92,6 +117,7 @@ MIXED = ((384, 120, 170), (768, 260, 350), (1536, 430, 690),
 REPLICAS = 256
 BATCH = 1024
 REPS = 5
+PLAIN_DP_REPS = 3   # the plain DP takes 20-40 s a group: median of 3
 PASSES = 5       # timed passes of each throughput stream
 SWEEP = (132, 924, 1024)   # K1 wave sweep: windows of the fixture group
 
@@ -117,6 +143,12 @@ STD_SCALE = (20_000_000, 20)
 STD_SAMPLES = 8             # windows of the scale run checked on their own
 BED_PROCESSES = (1, 4)
 GINI_COLUMNS = 1 << 22
+# [dist scale]: contigs of the seeded BAM, reads a contig and length bucket
+# (4 x 4 x 500 = 8,000 reads), the rank counts and the rounds of turns
+SCALE_CONTIGS = 4
+SCALE_READS = 500
+SCALE_RANKS = (2, 4)
+SCALE_ROUNDS = 2
 
 
 def nvidia_smi() -> str:
@@ -627,6 +659,17 @@ def bed_phase(tmp: str, ref: str, n_bases: int) -> None:
                              "counts")
 
 
+def gini_columns():
+    """GINI_COLUMNS seeded base and insertion count columns."""
+    import numpy as np
+    from npore_tpu_torch.cli import purity
+    rng = np.random.default_rng(5)
+    b = rng.integers(0, 256, (GINI_COLUMNS, 5), dtype=np.int32)
+    iv = rng.integers(0, 32, (GINI_COLUMNS, purity.INS_SLOTS),
+                      dtype=np.int32)
+    return b, iv
+
+
 def purity_phase(device) -> dict:
     """Purity with the Gini moments on the card against the host path, and
     the moments alone on GINI_COLUMNS seeded columns."""
@@ -639,10 +682,7 @@ def purity_phase(device) -> dict:
                             device=True)
     err = float(np.abs(host - dev).max()) if host.shape == dev.shape \
         else float("inf")
-    rng = np.random.default_rng(5)
-    b = rng.integers(0, 256, (GINI_COLUMNS, 5), dtype=np.int32)
-    iv = rng.integers(0, 32, (GINI_COLUMNS, purity.INS_SLOTS),
-                      dtype=np.int32)
+    b, iv = gini_columns()
     b64, i64 = b.astype(np.int64), iv.astype(np.int64)
     want = (b64.sum(1), (b64 * b64).sum(1), b64.sum(1) - i64.sum(1),
             (i64 * i64).sum(1))
@@ -660,6 +700,217 @@ def purity_phase(device) -> dict:
     if not t["moments_equal"]:
         raise AssertionError("gini_moments_device differs from numpy")
     return t
+
+
+def mesh_phase(batch, plain, tables, cfg) -> dict:
+    """[mesh]: the sharded K1 step on the fixture group over every card and
+    over two shards on one card, then in a 1-rank NCCL group; the
+    confusion reduce on seeded partials."""
+    import numpy as np
+    import torch
+    from npore_tpu_torch.ops import dp_cuda
+    from npore_tpu_torch.parallel import distributed as pd
+    from npore_tpu_torch.parallel import mesh as pm
+    from npore_tpu_torch.scripts.multihost_scaling import free_port
+    dev0 = torch.device("cuda", 0)
+    whole = dp_cuda.band_dp(batch, tables, cfg)
+    out = {"launches": 0, "meshes": []}
+
+    def run(mesh, tag):
+        dp_cuda.launches = 0
+        planes, counts = pm.make_sharded_step(mesh, cfg)(
+            pm.shard_batch(batch, mesh), tables)
+        torch.cuda.synchronize()
+        launches = dp_cuda.launches
+        out["launches"] += launches
+        got = torch.cat([p.to(dev0) for p in planes])
+        p = got.cpu().numpy()
+        hist = np.bincount((p & 7)[(p >> 3) > 0], minlength=5)
+        t = {"mesh": tag, "shards": mesh.size, "windows": len(got),
+             "launches": launches, "op_counts": counts.tolist(),
+             "equal_unsharded": torch.equal(got, whole),
+             "equal_plain": torch.equal(got, plain),
+             "counts_equal_numpy": np.array_equal(counts.cpu().numpy(),
+                                                  hist)}
+        out["meshes"].append(t)
+        print("[mesh] " + json.dumps(t), flush=True)
+        if not (t["equal_unsharded"] and t["equal_plain"]
+                and t["counts_equal_numpy"]):
+            raise AssertionError(f"the sharded step over {tag} differs")
+        if launches != mesh.size:
+            raise AssertionError(f"the sharded step over {tag} launched K1 "
+                                 f"{launches} times, not once a shard")
+        return counts
+
+    counts = run(pm.make_data_mesh(), "make_data_mesh()")
+    two = pm.make_data_mesh([dev0, dev0])
+    run(two, "[cuda:0, cuda:0]")
+    pd.start_group(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        back = pd.allreduce_sum(counts)
+        in_group = run(two, "[cuda:0, cuda:0] in a 1-rank NCCL group")
+        torch.cuda.synchronize()
+    finally:
+        pd.shutdown()
+    print(f"[mesh] 1-rank NCCL all_reduce: {back.tolist()} (in "
+          f"{counts.tolist()})", flush=True)
+    if not (torch.equal(back, counts) and torch.equal(in_group, counts)):
+        raise AssertionError("a 1-rank NCCL all_reduce changed the counts")
+    rng = np.random.default_rng(9)
+    for mesh in (pm.make_data_mesh(), two):
+        parts = [rng.integers(0, 1 << 40, (mesh.size,) + shape)
+                 for shape in ((5, 5), (2, cfg.max_n, cfg.max_l, cfg.max_l),
+                               (cfg.max_l,), (cfg.max_l,))]
+        got = pm.reduce_confusion_matrices(mesh, *parts)
+        if not all(g.dtype == np.int64 and np.array_equal(g, x.sum(0))
+                   for g, x in zip(got, parts)):
+            raise AssertionError("reduce_confusion_matrices differs from "
+                                 "the numpy sums")
+    print("[mesh] reduce_confusion_matrices equal to the numpy sums over "
+          "both meshes", flush=True)
+    return out
+
+
+def rank_launches(row) -> tuple:
+    """K1 and K2 launches of every rank of a multihost_scaling run."""
+    return (sum(r["k1_launches"] for r in row["ranks"]),
+            sum(r["k2_launches"] for r in row["ranks"]))
+
+
+def check_ranks(row, tag: str) -> None:
+    """Every rank of a run loaded nothing of JAX and bailed on nothing."""
+    for h, r in enumerate(row["ranks"]):
+        if r["loaded"]:
+            raise AssertionError(f"{tag}: rank {h} loaded {r['loaded']}")
+        if r["bails"]:
+            raise AssertionError(f"{tag}: rank {h} used the golden "
+                                 f"fallback {r['bails']} times")
+
+
+def dist_realign(tmp: str, stats: str) -> dict:
+    """[dist realign]: 2 ranks on the card against the golden SAM, then
+    the confusion counts of 2 ranks against 1 process."""
+    import numpy as np
+    from npore_tpu_torch.scripts import multihost_scaling as mh
+    data = os.path.join(REPO, "tests", "data")
+    cli = ["--bam", os.path.join(data, "reads.bam"),
+           "--ref", os.path.join(data, "ref.fasta"), "--engine", "cuda"]
+    pre = os.path.join(tmp, "dist")
+    row = mh.run_ranks(2, cli + ["--stats_dir", stats, "--out_prefix", pre],
+                       tmp, "dist")
+    check_ranks(row, "[dist realign]")
+    same = sam_parity(pre + ".sam", os.path.join(data, "npore_realigned.sam"))
+    t = {"hosts": 2, "reads": row["reads"], "golden_records_equal": same,
+         "wall_s": row["wall_s"], "seconds": row["seconds"],
+         "k1_k2_launches": rank_launches(row),
+         "bails": [r["bails"] for r in row["ranks"]]}
+    if same != 10:
+        raise AssertionError("2 ranks do not reproduce the golden SAM")
+    if any(min(r["k1_launches"], r["k2_launches"]) < 1
+           for r in row["ranks"]):
+        raise AssertionError("a rank did not launch K1 and K2")
+    cms = {}
+    for n in (1, 2):
+        d = os.path.join(tmp, f"cm{n}")
+        mh.run_ranks(n, cli + ["--stats_dir", d, "--out_prefix",
+                               os.path.join(tmp, f"cm{n}"), "--recalc_cms",
+                               "--recalc_exit"], tmp, f"cm{n}")
+        cms[n] = [np.load(os.path.join(d, f"{k}_cm.npy"))
+                  for k in ("subs", "nps", "inss", "dels")]
+    t["cm_equal_1_process"] = all(np.array_equal(a, b)
+                                  for a, b in zip(cms[1], cms[2]))
+    t["cm_total"] = int(sum(int(a.sum()) for a in cms[2]))
+    print("[dist realign] " + json.dumps(t), flush=True)
+    if not t["cm_equal_1_process"] or not t["cm_total"]:
+        raise AssertionError("2 ranks' confusion counts differ from 1 "
+                             "process's")
+    return t
+
+
+def write_scale_bam(d: str):
+    """SCALE_CONTIGS seeded contigs, each with SCALE_READS reads of every
+    length bucket of MIXED: FASTA and coordinate-sorted BAM paths."""
+    import numpy as np
+    from npore_tpu_torch.io.bam_writer import write_bam
+    from npore_tpu_torch.io.cigar import collapse_cigar
+    from npore_tpu_torch.io.fasta import write_fasta
+    from npore_tpu_torch.io.sam import SamRecord
+    from npore_tpu_torch.testing import synth as gen
+    rng = np.random.default_rng(17)
+    refs = {f"ctg{c}": gen.make_ref(rng, 200_000)
+            for c in range(SCALE_CONTIGS)}
+    records = []
+    for c, (name, ref) in enumerate(refs.items()):
+        for bucket, lo, hi in MIXED:
+            for i in range(SCALE_READS):
+                pos, seq, cig = gen.make_read(rng, ref, min_len=lo,
+                                              max_len=hi)
+                records.append((c, pos, SamRecord(
+                    qname=f"{name}_{bucket}_{i}", flag=0, rname=name,
+                    pos=pos, mapq=60, cigar=collapse_cigar(cig), seq=seq,
+                    qual="I" * len(seq),
+                    tags={"HP": ("i", int(rng.integers(0, 3))),
+                          "MD": ("Z", gen.md_tag(ref, pos, cig))})))
+    records.sort(key=lambda r: r[:2])
+    fasta, bam = os.path.join(d, "scale.fasta"), os.path.join(d, "scale.bam")
+    write_fasta(fasta, refs)
+    write_bam(bam, list(refs), [len(r) for r in refs.values()],
+              [r[2] for r in records])
+    return fasta, bam, len(records)
+
+
+def dist_scale(tmp: str, stats: str) -> dict:
+    """[dist scale]: 1, 2 and 4 ranks on the card, in turns, over a BAM of
+    SCALE_CONTIGS contigs (region shards)."""
+    from npore_tpu_torch.scripts import multihost_scaling as mh
+    t0 = time.perf_counter()
+    fasta, bam, n_reads = write_scale_bam(tmp)
+    print(f"[dist scale] input: {n_reads} reads on {SCALE_CONTIGS} contigs, "
+          f"made in {time.perf_counter() - t0:.2f}s", flush=True)
+    cli = ["--bam", bam, "--ref", fasta, "--stats_dir", stats,
+           "--engine", "cuda", "--batch_reads", str(BATCH)]
+    rows = []
+
+    def emit(line):
+        row = json.loads(line)
+        rows.append(row)
+        t = {k: row[k] for k in ("round", "hosts", "reads", "wall_s",
+                                 "seconds", "reads_per_s", "efficiency",
+                                 "records_match_1host")}
+        t["k1_k2_launches"] = rank_launches(row)
+        t["peak_device_bytes"] = [r["peak_device_bytes"]
+                                  for r in row["ranks"]]
+        print("[dist scale] " + json.dumps(t), flush=True)
+    mh.scaling(SCALE_RANKS, cli, tmp, SCALE_ROUNDS, emit=emit)
+    for row in rows:
+        check_ranks(row, "[dist scale]")
+        if not row["records_match_1host"] or row["reads"] != n_reads:
+            raise AssertionError(f"{row['hosts']} ranks' merged SAM differs "
+                                 "from the 1-rank SAM")
+        if row["hosts"] > 1 and any(r["k1_launches"] < 1
+                                    for r in row["ranks"]):
+            raise AssertionError("a rank of [dist scale] launched no K1")
+    launches = [rank_launches(r) for r in rows]
+    return {"rows": rows, "k1_launches": sum(a for a, _ in launches),
+            "k2_launches": sum(b for _, b in launches)}
+
+
+def purity_mesh_phase() -> None:
+    """[purity mesh]: the Gini moments split over two shards on one card
+    equal the unsharded call."""
+    import numpy as np
+    import torch
+    from npore_tpu_torch.cli import purity
+    b, iv = gini_columns()
+    dev0 = torch.device("cuda", 0)
+    want = purity.gini_moments_device(b, iv)
+    got = purity.gini_moments_device(b, iv, mesh=[dev0, dev0])
+    same = all(g.dtype == w.dtype and np.array_equal(g, w)
+               for g, w in zip(got, want))
+    print(f"[purity mesh] {GINI_COLUMNS} columns over [cuda:0, cuda:0]: "
+          f"equal to the unsharded call {same}", flush=True)
+    if not same:
+        raise AssertionError("gini_moments_device over a mesh differs")
 
 
 def main() -> int:
@@ -844,7 +1095,8 @@ def main() -> int:
         # the plain DP would take hours and the traceback runs once
         if name != "long":
             t["k1_plain_ms"], planes = median_ms(
-                lambda: window_dp(batch, tables, cfg), warm=False)
+                lambda: window_dp(batch, tables, cfg), warm=False,
+                reps=PLAIN_DP_REPS)
             plain = pack_planes(*planes)
             groups[name] = (batch, plain)
             t["k1_max_diff"] = int((packed - plain).abs().max())
@@ -893,6 +1145,9 @@ def main() -> int:
     print(f"[K1 sweep] {SWEEP[-1]} windows take "
           f"{sweep[-1]['ms'] / sweep[0]['ms']:.3f}x the time of "
           f"{SWEEP[0]}", flush=True)
+
+    # --- 15. [mesh] on the same group ---
+    mesh = mesh_phase(batch, plain, tables, cfg)
     del batch, plain, groups
 
     # --- 9. K3 vs the plain k-select, then the K3 path ---
@@ -937,6 +1192,23 @@ def main() -> int:
     purity_phase(dev)
     tmp.cleanup()
 
+    # --- 16-19. the multi-device layer ---
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    dist = dist_realign(tmp.name, stats)
+    scale_ranks = dist_scale(tmp.name, stats)
+    tmp.cleanup()
+    purity_mesh_phase()
+    dp_cuda.launches = tb_cuda.launches = 0
+    from npore_tpu_torch.scripts import dryrun_multichip
+    if dryrun_multichip.main(["--device", "cuda", "--n", "2"]) != 0:
+        raise AssertionError("dryrun_multichip failed")
+    torch.cuda.synchronize()
+    dryrun = (dp_cuda.launches, tb_cuda.launches)
+    print(f"[dryrun] K1/K2 launches {dryrun}", flush=True)
+    if min(dryrun) < 2:
+        raise AssertionError("the dry run did not launch K1 and K2 on both "
+                             "shards")
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m == "npore_tpu" or m.startswith("npore_tpu."))
     if loaded:
@@ -961,7 +1233,12 @@ def main() -> int:
                        "group_bound_ms":
                            scale["group"]["k1_bound"]["bound_ms"],
                        "run_bound_ms":
-                           scale["group"]["k1_run_bound"]["bound_ms"]}},
+                           scale["group"]["k1_run_bound"]["bound_ms"]},
+         "launches_multi_device": {
+             "mesh": mesh["launches"],
+             "dist_realign": dist["k1_k2_launches"][0],
+             "dist_scale": scale_ranks["k1_launches"],
+             "dryrun": dryrun[0]}},
         {"name": "traceback", "route": "cuda",
          "source": "npore_tpu_torch/csrc/traceback.cu",
          "replaces": "npore_tpu/ops/pallas_dp.py:981",
@@ -980,7 +1257,11 @@ def main() -> int:
                        "group_bound_ms":
                            scale["group"]["k2_bound"]["bound_ms"],
                        "run_bound_ms":
-                           scale["group"]["k2_run_bound"]["bound_ms"]}},
+                           scale["group"]["k2_run_bound"]["bound_ms"]},
+         "launches_multi_device": {
+             "dist_realign": dist["k1_k2_launches"][1],
+             "dist_scale": scale_ranks["k2_launches"],
+             "dryrun": dryrun[1]}},
         {"name": "tier_select", "route": "cuda",
          "source": "npore_tpu_torch/csrc/tier_select.cu",
          "replaces": "scripts/probe_cond.py:50",

@@ -136,7 +136,7 @@ def _torch_device(device):
 
 
 def gini_moments_device(base_counts: np.ndarray, ins_counts: np.ndarray,
-                        device="cuda") -> Tuple[np.ndarray, ...]:
+                        device="cuda", mesh=None) -> Tuple[np.ndarray, ...]:
     """Vectorized per-column Gini moments on ``device`` (the analog of
     the reference's per-column mp.Pool, src/purity.py:190-191).
 
@@ -146,7 +146,28 @@ def gini_moments_device(base_counts: np.ndarray, ins_counts: np.ndarray,
     path's per-term divisions, so values agree with compute_purity to
     within 1 ulp). Every sum is pinned to int32, as the JAX function's
     are (``torch.sum`` of int32 otherwise widens to int64). The counts are
-    numpy arrays or tensors (already on ``device``: no copy)."""
+    numpy arrays or tensors (already on ``device``: no copy).
+
+    ``mesh`` (a ``parallel.mesh.DataMesh`` or a list of devices) splits
+    the columns evenly over its devices in place of ``device``, as the JAX
+    function shard_maps them over its ``data`` mesh; the column count must
+    divide by the mesh size (``bam_purity`` pads to it)."""
+    if mesh is not None:
+        from ..parallel.mesh import make_data_mesh
+        mesh = make_data_mesh(mesh)
+        nb = len(base_counts)
+        if nb % mesh.size:
+            raise ValueError(f"{nb} columns do not split evenly over a mesh "
+                             f"of {mesh.size} devices")
+        k = nb // mesh.size
+        parts = [_moments(base_counts[i * k:(i + 1) * k],
+                          ins_counts[i * k:(i + 1) * k], dev)
+                 for i, dev in enumerate(mesh.devices)]
+        return tuple(np.concatenate(p) for p in zip(*parts))
+    return _moments(base_counts, ins_counts, device)
+
+
+def _moments(base_counts, ins_counts, device) -> Tuple[np.ndarray, ...]:
     import torch
     dev = _torch_device(device)
     b = torch.as_tensor(base_counts, dtype=torch.int32, device=dev)
@@ -218,10 +239,16 @@ def _counts_chunk(job):
 
 def bam_purity(bam_path: str, contig: Optional[str], beg: Optional[int],
                end: Optional[int], min_bq: int,
-               processes: int = 0, device=False) -> np.ndarray:
+               processes: int = 0, device=False, mesh=None) -> np.ndarray:
     """Purity scores (base, insertion) of every column. ``device``: False
     scores on the host; True runs the Gini moments on the card; a device
-    name (``"cpu"``, ``"cuda:1"``) runs them with PyTorch there."""
+    name (``"cpu"``, ``"cuda:1"``) runs them with PyTorch there. ``mesh``
+    (device path only) splits the columns over its devices instead."""
+    if mesh is not None:
+        if device is False:
+            raise ValueError("mesh= shards the device path: set device too")
+        from ..parallel.mesh import make_data_mesh
+        mesh = make_data_mesh(mesh)
     if device is not False:
         device = _torch_device("cuda" if device is True else device)
     bam = open_alignment_file(bam_path, prep=False)
@@ -258,11 +285,17 @@ def bam_purity(bam_path: str, contig: Optional[str], beg: Optional[int],
         if not isinstance(e[0], np.ndarray):
             scores[i] = e
     if idx:
-        # no padding: nothing is compiled per shape
-        bmat = np.stack([entries[i][0] for i in idx])
-        imat = np.stack([entries[i][1] for i in idx])
-        scores[idx] = purity_from_moments(
-            *gini_moments_device(bmat, imat, device))
+        # pad the batch as the JAX function does (a mesh shard divides
+        # evenly); pad columns have n=1 and are cut
+        nb = len(idx)
+        npad = -nb % (mesh.size if mesh is not None else 256)
+        bmat = np.ones((nb + npad, 5), np.int32)
+        imat = np.zeros((nb + npad, INS_SLOTS), np.int32)
+        bmat[:nb] = [entries[i][0] for i in idx]
+        imat[:nb] = [entries[i][1] for i in idx]
+        n, ssb, ni, ssi = gini_moments_device(bmat, imat, device, mesh=mesh)
+        scores[idx] = purity_from_moments(n[:nb], ssb[:nb], ni[:nb],
+                                          ssi[:nb])
     return scores
 
 

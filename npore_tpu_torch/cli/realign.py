@@ -2,6 +2,12 @@
 
 Usage: python -m npore_tpu_torch.cli.realign --bam in.bam --ref ref.fasta \
            --out_prefix out [--stats_dir ./stats] [--engine cuda|torch|golden]
+           [--num_hosts N --host_id I --coordinator HOST:PORT]
+
+With ``--num_hosts`` N > 1, N processes (one a rank) realign region
+shards, or read stripes when there are fewer regions than ranks, each into
+``{out_prefix}.h{I}.sam``; rank 0 merges them into ``{out_prefix}.sam``.
+The ranks talk over gloo (``parallel/distributed.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +26,9 @@ from ..io.fasta import FastaFile
 from ..io.sam import make_header
 from ..model.scores import (calc_score_matrices, load_confusion_matrices,
                             save_confusion_matrices)
+from ..parallel.distributed import (allreduce_counts, barrier, host_out_path,
+                                    init_distributed, merge_host_sams,
+                                    shard_regions, shutdown, stripe_reads)
 
 
 def argparser() -> argparse.ArgumentParser:
@@ -50,9 +59,14 @@ def argparser() -> argparse.ArgumentParser:
                    help="Write a torch.profiler trace of the realignment "
                         "stage to this directory (new; view with Perfetto).")
     p.add_argument("--num_hosts", type=int, default=1,
-                   help="Total participating hosts (only 1 is supported).")
-    p.add_argument("--host_id", type=int, default=None)
-    p.add_argument("--coordinator", type=str, default=None)
+                   help="Multi-host SPMD: total participating ranks "
+                        "(new; every rank runs this CLI with the same "
+                        "args plus its --host_id).")
+    p.add_argument("--host_id", type=int, default=None,
+                   help="This rank's index in [0, num_hosts).")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of the torch.distributed TCP store "
+                        "(rank 0 serves it).")
     return p
 
 
@@ -89,16 +103,38 @@ def main(argv=None) -> int:
 
 def run(argv=None) -> Optional[Realigner]:
     """The CLI's work; returns the Realigner that realigned the reads
-    (None when the run stops before realignment)."""
+    (None when the run stops before realignment). With ``--num_hosts`` N >
+    1 this process is one of N ranks: it joins the process group, and
+    leaves it when the run ends."""
     args = argparser().parse_args(argv)
-    if args.num_hosts > 1:
-        raise NotImplementedError("multi-host is a later slice of the port")
+    host_id, num_hosts = init_distributed(args.coordinator, args.num_hosts,
+                                          args.host_id)
+    try:
+        return _run(args, host_id, num_hosts)
+    finally:
+        if num_hosts > 1:
+            shutdown()
+
+
+def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
     cfg = config_from_args(args)
 
     print("> selecting BAM regions")
     ref_fa = FastaFile(cfg.ref)
     bam = open_alignment_file(cfg.bam)
     regions = get_bam_regions(cfg, ref_fa, bam)
+    stripe = False
+    if num_hosts > 1:
+        if len(regions) >= num_hosts:
+            regions = shard_regions(regions, num_hosts, host_id)
+            print(f"    host {host_id}/{num_hosts}: {len(regions)} region "
+                  f"shards")
+        else:
+            # fewer regions than hosts: fall back to read-level striping
+            # (all hosts stream all regions, keep every num_hosts-th read)
+            stripe = True
+            print(f"    host {host_id}/{num_hosts}: read-stripe mode "
+                  f"({len(regions)} regions < {num_hosts} hosts)")
 
     # auto-recalculate stats when any matrix is missing (src/realign.py:124-128)
     have_all = all(os.path.isfile(os.path.join(cfg.stats_dir, f"{n}_cm.npy"))
@@ -106,9 +142,18 @@ def run(argv=None) -> Optional[Realigner]:
     if cfg.recalc_cms or not have_all:
         print("> calculating confusion matrices")
         from ..engine.stats import calc_confusion_matrices_bam
+        # stats must shard by REGION even in read-stripe mode: each count
+        # contributes once globally or the allreduce multiplies every
+        # count by num_hosts, which shifts the eps-smoothed score
+        # matrices (model/scores.py) vs a single-host run
+        stat_regions = (shard_regions(regions, num_hosts, host_id)
+                        if stripe else regions)
         subs, nps, inss, dels = calc_confusion_matrices_bam(
-            bam_path=cfg.bam, ref_fa=ref_fa, regions=regions, cfg=cfg)
-        save_confusion_matrices(cfg.stats_dir, subs, nps, inss, dels)
+            bam_path=cfg.bam, ref_fa=ref_fa, regions=stat_regions, cfg=cfg)
+        if num_hosts > 1:      # all-reduce each host's region-shard counts
+            subs, nps, inss, dels = allreduce_counts([subs, nps, inss, dels])
+        if host_id == 0:
+            save_confusion_matrices(cfg.stats_dir, subs, nps, inss, dels)
         if cfg.recalc_exit:
             return None
     else:
@@ -130,7 +175,7 @@ def run(argv=None) -> Optional[Realigner]:
 
     print("> creating output SAM")
     header = make_header(bam.references, bam.lengths, __version__)
-    out_path = f"{cfg.out_prefix}.sam"
+    out_path = host_out_path(cfg.out_prefix, host_id, num_hosts)
     d = os.path.dirname(out_path)
     if d:
         os.makedirs(d, exist_ok=True)
@@ -151,6 +196,8 @@ def run(argv=None) -> Optional[Realigner]:
         for line in header:
             fh.write(line + "\n")
         reads = get_read_data(bam, regions, cfg.max_reads)
+        if stripe:
+            reads = stripe_reads(reads, num_hosts, host_id)
         for rec in realigner.realign_records(reads, cfg.batch_reads):
             fh.write(rec.to_line() + "\n")
             n += 1
@@ -174,6 +221,11 @@ def run(argv=None) -> Optional[Realigner]:
         print(f"    {realigner.bail_count} alignments used the golden "
               f"fallback")
     print(f"\r    {n} reads realigned; runtime: {perf_counter()-start:.2f}s")
+    if num_hosts > 1:
+        barrier("realign-sam")
+        if host_id == 0:
+            merged = merge_host_sams(cfg.out_prefix, num_hosts)
+            print(f"    merged {num_hosts} host shards into {merged}")
     return realigner
 
 

@@ -17,6 +17,15 @@ not by the call's size. With
 ``plain=True`` (the ``torch`` engine) the group runs the plain PyTorch DP
 and traceback on the engine's device, synchronously.
 
+Over several devices (``devices=``) the groups go round-robin: each
+submitted group runs on the next device of the list, with that device's
+stream and copy of the score tables, so groups on different cards run at
+once (the JAX ``PallasEngine``'s group round-robin over its local chips).
+By default the ``cuda`` engine takes every visible card, or under a process
+group the rank's one card (``parallel.distributed.local_devices``).
+``GROUPS_IN_FLIGHT`` holds per device; ``windows``, ``groups`` and
+``wait_s`` count for the whole engine.
+
 Bailed alignments (a traceback error; K1 itself never bails) are redone
 with the exact golden aligner, as PallasEngine does. That fallback is the
 algorithm's exact path, not a device fallback, and counts in
@@ -26,6 +35,7 @@ cannot overflow, and nothing is compiled per shape.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from collections import deque
 from time import perf_counter
@@ -40,6 +50,7 @@ from ..ops import dp_cuda, tb_cuda
 from ..ops.band_dp import check_band, pack_planes, window_dp
 from ..ops.tables import tables_from_numpy
 from ..ops.traceback import decode, traceback
+from ..parallel.distributed import local_devices
 from .windows import (Window, build_windows, group_layout, group_nbytes,
                       pack_group, tensor_views)
 
@@ -54,23 +65,34 @@ GROUPS_IN_FLIGHT = 4            # submitted, uncollected groups per call:
 class CudaEngine:
     def __init__(self, sub_scores: np.ndarray, np_scores: np.ndarray,
                  cfg: AlignConfig = AlignConfig(), device=None,
-                 plain: bool = False):
+                 plain: bool = False, devices=None):
         check_band(cfg)
         self.cfg = cfg
         self.plain = plain
-        self.device = resolve_device("torch" if plain else "cuda", device)
+        engine = "torch" if plain else "cuda"
+        if devices is None:
+            if device is None and not plain:
+                resolve_device(engine)          # raises without a card
+                devices = local_devices()
+            else:
+                devices = [device]
+        self.devices = [resolve_device(engine, d) for d in devices]
+        if not self.devices:
+            raise ValueError("CudaEngine needs at least one device")
         self.sub_scores = np.asarray(sub_scores, dtype=np.float32)
         self.np_scores = np_scores
-        self.tables = tables_from_numpy(sub_scores, np_scores, cfg,
-                                        self.device)
+        self._tables = {d: tables_from_numpy(sub_scores, np_scores, cfg, d)
+                        for d in dict.fromkeys(self.devices)}
         self.group_windows = GROUP_WINDOWS
         self.bail_count = 0
         self.windows = 0        # windows and groups run, and the seconds
         self.groups = 0         # spent waiting on the device for results
         self.wait_s = 0.0
         self._wait_lock = threading.Lock()   # a submit and a collect thread
-        self._cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        self._cuda = self.devices[0].type == "cuda"
+        self._streams = {d: torch.cuda.Stream(d) for d in self._tables} \
+            if self._cuda else {}
+        self._next_device = itertools.cycle(self.devices)
 
     def align_batch(self, items) -> List[str]:
         """items: sequence with .ref/.seq int arrays and .cigar (expanded).
@@ -88,7 +110,7 @@ class CudaEngine:
         self.windows += len(windows)
         done, pending = [], deque()
         for g in self._groups(windows):
-            if len(pending) == GROUPS_IN_FLIGHT:
+            if len(pending) == GROUPS_IN_FLIGHT * len(self.devices):
                 done.append(self._collect(*pending.popleft()))
             pending.append((g, self._submit(g)))
             self.groups += 1
@@ -107,34 +129,37 @@ class CudaEngine:
             lo = hi
 
     def _submit(self, group: Sequence[Window]):
+        """Enqueue ``group`` on the next device of the round-robin."""
         cfg = self.cfg
+        dev = next(self._next_device)
+        tables = self._tables[dev]
         R = max(w.b_rows for w in group)
         L = max(max(w.n_ins + w.n_del for w in group), 1)
         layout = group_layout(len(group), R, cfg.max_n)
         if not self._cuda:
             buf, _ = pack_group(group, R, cfg.max_n)
-            batch = tensor_views(torch.from_numpy(buf).to(self.device),
-                                 layout)
-            return self._run(batch, L).buf.cpu(), L, None
+            batch = tensor_views(torch.from_numpy(buf).to(dev), layout)
+            return self._run(batch, L, tables).buf.cpu(), L, None
         host = torch.empty(group_nbytes(layout), dtype=torch.uint8,
                            pin_memory=True)
         pack_group(group, R, cfg.max_n, out=host.numpy())
-        with torch.cuda.stream(self._stream):
-            dev_buf = host.to(self.device, non_blocking=True)
-            out = self._run(tensor_views(dev_buf, layout), L)
+        stream = self._streams[dev]
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            dev_buf = host.to(dev, non_blocking=True)
+            out = self._run(tensor_views(dev_buf, layout), L, tables)
             res = torch.empty(out.buf.shape, dtype=torch.uint8,
                               pin_memory=True)
             res.copy_(out.buf, non_blocking=True)
             done = torch.cuda.Event()
-            done.record(self._stream)
+            done.record(stream)
         return res, L, done
 
-    def _run(self, batch, L: int):
+    def _run(self, batch, L: int, tables):
         cfg = self.cfg
         if self.plain:
-            packed = pack_planes(*window_dp(batch, self.tables, cfg))
+            packed = pack_planes(*window_dp(batch, tables, cfg))
             return traceback(packed, batch, cfg, L)
-        packed = dp_cuda.band_dp(batch, self.tables, cfg)
+        packed = dp_cuda.band_dp(batch, tables, cfg)
         return tb_cuda.traceback(packed, batch, cfg, L)
 
     def _collect(self, group: Sequence[Window], handle):

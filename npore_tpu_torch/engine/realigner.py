@@ -6,9 +6,10 @@
 
 Every chunk of every read is an independent work item (chunks re-anchor on
 the original path), so windows from different reads mix freely in a group.
-Engines: ``cuda`` (kernels K1/K2 on the card), ``torch`` (the plain PyTorch
-DP and traceback on the given device, the CPU by default) and ``golden``
-(the executable spec, on the host).
+Engines: ``cuda`` (kernels K1/K2 on the given card, by default on every
+visible card, or the rank's one card under a process group), ``torch``
+(the plain PyTorch DP and traceback on the given device, the CPU by
+default) and ``golden`` (the executable spec, on the host).
 """
 from __future__ import annotations
 

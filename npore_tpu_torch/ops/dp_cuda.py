@@ -59,11 +59,12 @@ def band_dp(batch: Dict[str, torch.Tensor], tables: Dict[str, torch.Tensor],
     if B == 0 or R == 0:
         return packed
     ptr = [batch[k].data_ptr() for k in _INT8 + _INT32]
-    err = _build.entry("band_dp")(
-        *ptr, tables["sub"].data_ptr(), tables["cont"].data_ptr(),
-        packed.data_ptr(), B, R, A, cfg.r, cfg.max_n, cfg.inf,
-        cfg.indel_start, cfg.indel_extend,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):        # the launch goes to dev's context
+        err = _build.entry("band_dp")(
+            *ptr, tables["sub"].data_ptr(), tables["cont"].data_ptr(),
+            packed.data_ptr(), B, R, A, cfg.r, cfg.max_n, cfg.inf,
+            cfg.indel_start, cfg.indel_extend,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "band_dp")
     global launches
     launches += 1

@@ -92,13 +92,14 @@ def traceback(packed: torch.Tensor, batch: Dict[str, torch.Tensor],
     if B == 0:
         return out
     plan = launch_plan(B, R)
-    err = _build.entry("traceback")(
-        packed.data_ptr(), batch["inss"].data_ptr(),
-        batch["seqbuf"].data_ptr(), batch["refbuf"].data_ptr(),
-        batch["n_ins"].data_ptr(), batch["n_del"].data_ptr(),
-        out.meta.data_ptr(), out.cig.data_ptr(), B, R, A, out.cig.shape[1],
-        cfg.r, plan.tile_rows, plan.windows_per_cta,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):        # the launch goes to dev's context
+        err = _build.entry("traceback")(
+            packed.data_ptr(), batch["inss"].data_ptr(),
+            batch["seqbuf"].data_ptr(), batch["refbuf"].data_ptr(),
+            batch["n_ins"].data_ptr(), batch["n_del"].data_ptr(),
+            out.meta.data_ptr(), out.cig.data_ptr(), B, R, A,
+            out.cig.shape[1], cfg.r, plan.tile_rows, plan.windows_per_cta,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "traceback")
     global launches
     launches += 1

@@ -53,8 +53,13 @@ MODULES = [
     "npore_tpu_torch.cli.bed",
     "npore_tpu_torch.cli.filter",
     "npore_tpu_torch.cli.purity",
+    "npore_tpu_torch.parallel",
+    "npore_tpu_torch.parallel.distributed",
+    "npore_tpu_torch.parallel.mesh",
     "npore_tpu_torch.scripts.probe_cond",
     "npore_tpu_torch.scripts.kernel_ab",
+    "npore_tpu_torch.scripts.multihost_scaling",
+    "npore_tpu_torch.scripts.dryrun_multichip",
     "npore_tpu_torch.testing.synth",
     "npore_tpu_torch.testing.planes",
     "npore_tpu_torch.testing.chunks",
@@ -192,10 +197,41 @@ def test_realigner_cuda_engine_raises_without_card(score_matrices):
         Realigner(sub_scores, np_scores, engine="cuda")
 
 
-def test_cli_multi_host_is_not_supported(tmp_path, data_dir, stats_dir):
+def test_cli_multi_host_is_not_supported(tmp_path, data_dir, stats_dir,
+                                        monkeypatch):
+    """Multi-host runs are supported (tests/test_torch_distributed.py), but
+    not without a coordinator: the CLI refuses to start one rank alone."""
     from npore_tpu_torch.cli.realign import main
-    with pytest.raises(NotImplementedError):
+    for k in ("MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="coordinator"):
         main(["--bam", os.path.join(data_dir, "reads.bam"),
               "--ref", os.path.join(data_dir, "ref.fasta"),
               "--out_prefix", str(tmp_path / "o"), "--stats_dir", stats_dir,
               "--engine", "torch", "--num_hosts", "2"])
+    assert not os.path.exists(tmp_path / "o.sam")
+
+
+def test_dryrun_multichip_in_fresh_interpreter_loads_no_jax():
+    """``python -m npore_tpu_torch.scripts.dryrun_multichip --device cpu``:
+    the sharded step and the engine over two CPU devices pass, and the
+    run loads neither jax nor npore_tpu."""
+    code = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['x', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('npore_tpu_torch.scripts.dryrun_multichip', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'npore_tpu' or "
+        "m.startswith('npore_tpu.'))\n"
+        "print(json.dumps({'rc': rc, 'loaded': bad}))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert any("sharded step ok" in l for l in lines)
+    assert any("golden-exact" in l for l in lines)
+    assert json.loads(lines[-1]) == {"rc": 0, "loaded": []}
