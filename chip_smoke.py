@@ -5,9 +5,9 @@
 
 Phases:
   1. the card (nvidia-smi name and power limit) and torch version;
-  2. build kernels K1 (csrc/band_dp.cu), K2 (csrc/traceback.cu) and K3
-     (csrc/tier_select.cu) with nvcc, one process per source, and print
-     ptxas registers and shared memory of each;
+  2. build kernels K1 (csrc/band_dp.cu), K2 (csrc/traceback.cu), K3
+     (csrc/tier_select.cu) and K4 (csrc/npinfo.cu) with nvcc, one process
+     per source, and print ptxas registers and shared memory of each;
   3. the host library: the port's C++ host library must have loaded from
      the port's build directory, and tests/data/reads.bam must open as the
      port's NativeBamReader (so the reads/s below are the C++ host path's);
@@ -18,12 +18,12 @@ Phases:
      and bails must be equal;
   6. the realign CLI with --engine cuda on tests/data/reads.bam must
      reproduce tests/data/npore_realigned.sam (header, 11 fields, tags;
-     10/10) with no golden fallback, and launch both kernels;
+     10/10) with no golden fallback, and launch K4, K1 and K2;
   7. throughput: the fixture replicated x256 (batch 1024) and the mixed
-     set, each streamed 5 times (median, min and max reads/s, K1/K2
-     launches per pass); kernel and plain-version times at those groups'
-     shapes (CUDA events, median of 5, the plain DP's of 3; kernels after
-     one warm-up call),
+     set, each streamed 5 times (median, min and max reads/s, K4/K1/K2
+     launches per pass; K4 must launch once a group, as K1); kernel and
+     plain-version times at those groups' shapes (CUDA events, median of
+     5, the plain DP's of 3; kernels after one warm-up call),
      with the kernels' outputs required equal to the plain versions' there
      too, and each kernel's bound there. K2 is timed warm (``k2_ms``: the
      same planes relaunched, hot in L2) and cold (``k2_cold_ms``: a 64 MB
@@ -35,7 +35,25 @@ Phases:
      reads of ~10.6 kb (max_b_rows = 20000): K1 and K2 warm and
      cold there (``k2_long_ms``), K2 equal to the plain traceback. Each
      group's line carries K2's launch plan (windows a CTA, tile rows,
-     shared memory) and the CTAs resident an SM (``tb_cuda.occupancy``);
+     shared memory) and the CTAs resident an SM (``tb_cuda.occupancy``).
+     [npinfo] on each of the three groups: K4 on a device buffer of 0xA5
+     bytes around ``windows.fill_group``'s prefix must give every array of
+     ``pack_group``'s host-built buffer byte for byte, and planes equal to
+     the plain scan's on the same device tensors; K4's time as paid and
+     queued, the plain scan's, K4's bound and the H2D bytes of both
+     buffers. [host split] on the fixture group: pack_group into a pinned
+     buffer and its full copy against fill_group into a pinned prefix, its
+     copy and K4, in turns (old, new, new, old): host µs and ms until the
+     device holds the buffer. [npinfo] also on ``ntails``, 256 seeded
+     reads dense in periodic runs that hold an N and ending in one, where
+     the scan must stop at each window's length;
+     [host split] fixture pass: one fixture x256 pass under torch.profiler
+     (device busy and idle share of the pass's wall time), then one with
+     NPORE_TIMING=1 (per-read submit, collect-wait, finalize+emit µs);
+     [fuzz]: the ported fuzzer (scripts/fuzz_parity.py), 200 repeat-dense
+     cases of seed 0 through the CUDA engine, 200/200 equal to the golden
+     aligner; [bench engine]: scripts/bench_engine.py, engine-level reads/s
+     on the fixture x256;
   8. K1 wave sweep: K1 on the first B in (132, 924, 1024) windows of the
      fixture's 1024-window group at the same R (CUDA events, median of 5
      after a warm-up call): ms, µs per row, the CTAs resident per SM that
@@ -57,11 +75,12 @@ Phases:
  12. [std scale] standardize_vcf --engine cuda on a seeded 20 Mbp contig x
      2 haplotypes (the JAX package's hardware run, a third of chr20): wall
      seconds, the NPORE_TIMING stage split, windows, groups, K1/K2
-     launches, bails, records out, peak host RSS, device memory and pinned
-     host memory (which must stay within the engine's GROUPS_IN_FLIGHT
-     groups); 8 seeded windows each equal to the golden aligner on that
-     window's own sub-alignment; K1 and K2 timed on one 104 x 20,000-row
-     group of the run, with the bounds of that group and of the run;
+     K4/K1/K2 launches (once a group each), bails, records out, peak host
+     RSS, device memory and pinned host memory (which must stay within the
+     engine's GROUPS_IN_FLIGHT groups); 8 seeded windows each equal to
+     the golden aligner on that window's own sub-alignment; K1 and K2 timed on one 104 x 20,000-row
+     group of the run, with the bounds of that group and of the run, and
+     [npinfo] and [host split] on that group as on phase 7's groups;
  13. [bed] the BED CLI on the same contig, --max_n 6, 1 and then 4
      processes: byte-identical files; wall seconds and regions per n;
  14. [purity] bam_purity with the Gini moments on the card equal to the
@@ -92,7 +111,8 @@ Phases:
      golden-exact;
  20. a JSON line of kernels (launches on their path and on the new paths,
      error, times, and the least time the card could take for the same
-     work), then the device line last.
+     work; K4's line replaces the JAX engine's XLA scan, not a
+     pallas_call), then the device line last.
 
 The script imports nothing of JAX or of ``npore_tpu``: it fails if the run
 loaded ``jax``, ``npore_tpu`` or any ``npore_tpu.*`` module, and so does
@@ -100,6 +120,8 @@ each rank that phases 16-17 start.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -117,8 +139,9 @@ MIXED = ((384, 120, 170), (768, 260, 350), (1536, 430, 690),
 REPLICAS = 256
 BATCH = 1024
 REPS = 5
-PLAIN_DP_REPS = 3   # the plain DP takes 20-40 s a group: median of 3
+PLAIN_DP_REPS = 1   # the plain DP takes 20-60 s a group: one call
 PASSES = 5       # timed passes of each throughput stream
+FUZZ_CASES = 200  # [fuzz]: cases of the ported fuzzer, seed 0
 SWEEP = (132, 924, 1024)   # K1 wave sweep: windows of the fixture group
 
 # published H100 SXM peaks: the bound of a
@@ -249,6 +272,125 @@ def k3_bound(W: int, Q: int, lanes: int, n_steps: int) -> dict:
     return bound(4 * W * lanes * (min(Q, 12) + 1), 2 * W * lanes * n_steps)
 
 
+def k4_bound(batch, max_n: int) -> dict:
+    """K4 reads each window's two rows once and writes its four planes
+    once: 2 * A bytes in, 4 * max_n * A bytes out a window."""
+    B, A = batch["seqbuf"].shape
+    return bound(2 * B * A + 4 * max_n * B * A, 0)
+
+
+def npinfo_check(tag: str, wins, batch, cfg, dev) -> dict:
+    """[npinfo]: K4 on a device buffer of 0xA5 bytes around fill_group's
+    prefix, against the group ``batch`` that pack_group built on the host
+    (every array byte for byte) and against the plain scan on the same
+    device tensors; K4's time as paid and queued, the plain scan's, and
+    K4's bound."""
+    import numpy as np
+    import torch
+    from npore_tpu_torch.engine.windows import (PLANES, fill_group,
+                                                group_layout, group_nbytes,
+                                                tensor_views)
+    from npore_tpu_torch.ops import npinfo_cuda
+    R = batch["inss"].shape[1] - 8
+    layout = group_layout(len(wins), R, cfg.max_n)
+    head = fill_group(wins, R, cfg.max_n)
+    off = len(head)
+    buf = torch.full((group_nbytes(layout),), 0xA5, dtype=torch.uint8,
+                     device=dev)
+    buf[:off].copy_(torch.from_numpy(head))
+    got = tensor_views(buf, layout)
+    t = {"group": tag, "B": len(wins), "R": R, "A": got["seqbuf"].shape[1],
+         "threads": npinfo_cuda.threads_for(got["seqbuf"].shape[1])}
+    t["ms"], _ = median_ms(lambda: npinfo_cuda.fill_planes(got, cfg))
+    t["device_ms"], _ = median_ms(lambda: npinfo_cuda.fill_planes(got, cfg),
+                                  queued=True)
+    plain = {k: v.clone() for k, v in got.items()}
+    t["plain_ms"], _ = median_ms(
+        lambda: npinfo_cuda.fill_planes_plain(plain, cfg), warm=False)
+    torch.cuda.synchronize()
+    t["equal_pack_group"] = all(torch.equal(got[k], batch[k])
+                                for k in batch)
+    t["equal_plain"] = all(torch.equal(got[k], plain[k]) for k in PLANES)
+    t["max_abs_err"] = max(int((got[k].int() - plain[k].int()).abs().max())
+                           for k in PLANES)
+    t["h2d_bytes"] = {"fill_group": off, "pack_group": buf.numel()}
+    t.update(k4_bound(got, cfg.max_n))
+    print("[npinfo] " + json.dumps(t), flush=True)
+    if not (t["equal_pack_group"] and t["equal_plain"]):
+        raise AssertionError(f"K4's planes differ from pack_group's or the "
+                             f"plain scan's ({tag})")
+    return t
+
+
+def host_split_group(tag: str, wins, cfg, dev) -> dict:
+    """[host split] per group, in turns (old, new, new, old): the host
+    microseconds of pack_group into a pinned buffer and of fill_group into
+    a pinned prefix, and the milliseconds until the device holds the
+    whole buffer (the full H2D copy; the prefix copy and K4), with the
+    H2D bytes of each."""
+    import torch
+    from npore_tpu_torch.engine.windows import (fill_group, group_layout,
+                                                group_nbytes, pack_group,
+                                                prefix_nbytes, tensor_views)
+    from npore_tpu_torch.ops import npinfo_cuda
+    R = max(w.b_rows for w in wins)
+    layout = group_layout(len(wins), R, cfg.max_n)
+    nbytes, off = group_nbytes(layout), prefix_nbytes(layout)
+    runs = {"pack_group": [], "fill_group": []}
+    for name in ("pack_group", "fill_group", "fill_group", "pack_group"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "pack_group":
+            host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            pack_group(wins, R, cfg.max_n, out=host.numpy())
+            t1 = time.perf_counter()
+            host.to(dev, non_blocking=True)
+        else:
+            host = torch.empty(off, dtype=torch.uint8, pin_memory=True)
+            fill_group(wins, R, cfg.max_n, out=host.numpy())
+            t1 = time.perf_counter()
+            d = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            d[:off].copy_(host, non_blocking=True)
+            npinfo_cuda.fill_planes(tensor_views(d, layout), cfg)
+        torch.cuda.synchronize()
+        runs[name].append({"host_us": (t1 - t0) * 1e6,
+                           "to_device_ms": (time.perf_counter() - t0) * 1e3})
+    t = {"group": tag, "B": len(wins), "R": R,
+         "h2d_bytes": {"pack_group": nbytes, "fill_group": off}, **runs}
+    print("[host split] " + json.dumps(t), flush=True)
+    return t
+
+
+def profile_pass(run) -> dict:
+    """Device busy share of one call of ``run`` under torch.profiler (CUDA
+    activity only): the union of kernel, copy and memset intervals in the
+    trace over the pass's wall time. None where the trace holds no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with tempfile.TemporaryDirectory() as d:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:                   # union of the intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    share = busy / (wall * 1e6) if spans else None
+    return {"wall_s": wall, "device_events": len(spans),
+            "device_busy_s": busy / 1e6, "busy_share": share,
+            "idle_share": None if share is None else 1 - share}
+
+
 def items_of(reads):
     from npore_tpu_torch.constants import bases_to_int
     from npore_tpu_torch.engine.realigner import AlignItem
@@ -273,6 +415,21 @@ def device_group(items, cfg, device):
     buf, layout = pack_group(wins, R, cfg.max_n)
     batch = tensor_views(torch.from_numpy(buf).to(device), layout)
     return wins, batch
+
+
+def ntails_group(cfg, device):
+    """Seeded reads dense in periodic runs that hold an N, each ending in
+    one (``synth.n_tail_reads``), as one packed group on ``device``: the
+    scan must stop at each window's length, since such an N matches the
+    zero padding past it."""
+    import numpy as np
+    from npore_tpu_torch.constants import bases_to_int
+    from npore_tpu_torch.engine.realigner import AlignItem
+    from npore_tpu_torch.testing import synth as gen
+    items = [AlignItem(bases_to_int(ref), bases_to_int(seq), cig)
+             for ref, seq, cig in gen.n_tail_reads(np.random.default_rng(11),
+                                                   254)]
+    return device_group(items, cfg, device)
 
 
 def long_group(cfg, device):
@@ -504,7 +661,7 @@ def std_scale(tmp: str, stats: str, sub_scores, np_scores, cfg,
     from npore_tpu_torch.engine.windows import (build_windows, group_layout,
                                                 group_nbytes, pack_group,
                                                 tensor_views)
-    from npore_tpu_torch.ops import dp_cuda, tb_cuda
+    from npore_tpu_torch.ops import dp_cuda, npinfo_cuda, tb_cuda
     from npore_tpu_torch.testing import chunks
     n_bases, seed = STD_SCALE
     t0 = time.perf_counter()
@@ -519,7 +676,7 @@ def std_scale(tmp: str, stats: str, sub_scores, np_scores, cfg,
     torch.cuda.reset_peak_host_memory_stats()
     pinned0 = torch.cuda.host_memory_stats()["allocated_bytes.current"]
     rss0 = peak_rss()
-    dp_cuda.launches = tb_cuda.launches = 0
+    dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
     os.environ["NPORE_TIMING"] = "1"
     try:
         t0 = time.perf_counter()
@@ -529,6 +686,7 @@ def std_scale(tmp: str, stats: str, sub_scores, np_scores, cfg,
     finally:
         del os.environ["NPORE_TIMING"]
     k1_launches, k2_launches = dp_cuda.launches, tb_cuda.launches
+    k4_launches = npinfo_cuda.launches
     host = torch.cuda.host_memory_stats()
     eng = rl._engine
 
@@ -549,7 +707,7 @@ def std_scale(tmp: str, stats: str, sub_scores, np_scores, cfg,
     t = {"wall_s": wall, "windows": eng.windows, "groups": eng.groups,
          "group_shapes": sorted(set(shapes)),
          "k1_launches": k1_launches, "k2_launches": k2_launches,
-         "bail_count": rl.bail_count,
+         "k4_launches": k4_launches, "bail_count": rl.bail_count,
          "records_out": len(vcf_records(pre + ".vcf.gz")),
          "truth_records": n_truth,
          "peak_rss_bytes": peak_rss(),      # the run's, if above the
@@ -564,8 +722,8 @@ def std_scale(tmp: str, stats: str, sub_scores, np_scores, cfg,
     if (eng.windows, eng.groups) != (len(wins), len(groups)):
         raise AssertionError("the engine's windows and groups differ from "
                              "the run's")
-    if not k1_launches == k2_launches == len(groups):
-        raise AssertionError("standardize_vcf did not launch K1 and K2 "
+    if not k1_launches == k2_launches == k4_launches == len(groups):
+        raise AssertionError("standardize_vcf did not launch K4, K1 and K2 "
                              "once a group")
     if t["pinned_peak_bytes"] - pinned0 > pinned_limit:
         raise AssertionError("pinned host memory grew past "
@@ -627,6 +785,8 @@ def std_scale(tmp: str, stats: str, sub_scores, np_scores, cfg,
     grp["k2_run_bound"] = k2_run_bound(done.cigars, len(wins))
     print("[std group] " + json.dumps(grp), flush=True)
     t["group"] = grp
+    t["npinfo"] = npinfo_check("std", g, batch, cfg, dev)
+    t["split"] = host_split_group("std", g, cfg, dev)
     return t
 
 
@@ -928,7 +1088,8 @@ def main() -> int:
     from npore_tpu_torch.io.bam_native import NativeBamReader
     from npore_tpu_torch.model.scores import (calc_score_matrices,
                                               load_confusion_matrices)
-    from npore_tpu_torch.ops import _build, dp_cuda, tb_cuda, tier_select_cuda
+    from npore_tpu_torch.ops import (_build, dp_cuda, npinfo_cuda, tb_cuda,
+                                     tier_select_cuda)
     from npore_tpu_torch.ops.band_dp import pack_planes, window_dp
     from npore_tpu_torch.ops.tables import tables_from_numpy
     from npore_tpu_torch.ops.tier_select import tier_select_plain
@@ -1012,8 +1173,7 @@ def main() -> int:
         raise AssertionError(f"{n_bail} windows bailed in the traceback")
 
     # --- 6. the main path: realign CLI, --engine cuda ---
-    dp_cuda.launches = 0
-    tb_cuda.launches = 0
+    dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
     pre = os.path.join(tmp.name, "out")
     t0 = time.perf_counter()
     rl = cli.run(["--bam", os.path.join(data, "reads.bam"),
@@ -1023,16 +1183,17 @@ def main() -> int:
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     k1_launches, k2_launches = dp_cuda.launches, tb_cuda.launches
+    k4_launches = npinfo_cuda.launches
     same = sam_parity(pre + ".sam",
                       os.path.join(data, "npore_realigned.sam"))
     print(f"[e2e] golden SAM records equal: {same}/10, bail_count "
-          f"{rl.bail_count}, launches K1 {k1_launches} K2 {k2_launches}, "
-          f"{e2e_s:.2f}s", flush=True)
+          f"{rl.bail_count}, launches K4 {k4_launches} K1 {k1_launches} K2 "
+          f"{k2_launches}, {e2e_s:.2f}s", flush=True)
     if same != 10 or rl.bail_count != 0:
         raise AssertionError("the CUDA engine does not reproduce the "
                              "golden SAM")
-    if k1_launches < 1 or k2_launches < 1:
-        raise AssertionError("the main path did not launch both kernels")
+    if min(k1_launches, k2_launches, k4_launches) < 1:
+        raise AssertionError("the main path did not launch K4, K1 and K2")
 
     # --- 7. throughput, kernel times and bounds ---
     eng = Realigner(sub_scores, np_scores, cfg, engine="cuda")
@@ -1048,9 +1209,10 @@ def main() -> int:
     rep_m = 16
 
     def streamed(n, run):
-        """reads/s of ``run`` and its K1/K2 launches per pass."""
-        dp_cuda.launches = tb_cuda.launches = 0
+        """reads/s of ``run`` and its K4/K1/K2 launches per pass."""
+        dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
         out = rate_stats(n, run)
+        out["k4_launches_per_pass"] = npinfo_cuda.launches / PASSES
         out["k1_launches_per_pass"] = dp_cuda.launches / PASSES
         out["k2_launches_per_pass"] = tb_cuda.launches / PASSES
         return out
@@ -1063,8 +1225,52 @@ def main() -> int:
     print(f"[throughput] fixture x{REPLICAS} (batch {BATCH}) reads/s "
           f"{json.dumps(fixture_rps)}; mixed set x{rep_m} reads/s "
           f"{json.dumps(mixed_rps)}", flush=True)
+    if fixture_rps["k4_launches_per_pass"] != fixture_rps[
+            "k1_launches_per_pass"]:
+        raise AssertionError("the main path did not launch K4 once a group")
 
-    shapes, groups = {}, {}
+    # --- [host split]: one fixture pass under the profiler, one timed ---
+    n_fx = REPLICAS * len(fixture)
+    split = {"profile": profile_pass(lambda: sum(
+        1 for _ in eng.realign_records(work(), batch_size=BATCH)))}
+    log = io.StringIO()
+    os.environ["NPORE_TIMING"] = "1"
+    try:
+        with contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            got = sum(1 for _ in eng.realign_records(work(),
+                                                     batch_size=BATCH))
+            split["timed_pass_s"] = time.perf_counter() - t0
+    finally:
+        del os.environ["NPORE_TIMING"]
+    m = re.search(r"submit (\d+)us, collect-wait (\d+)us, finalize\+emit "
+                  r"(\d+)us, decode-wait (\d+)us, main-wait (\d+)us",
+                  log.getvalue())
+    if got != n_fx or m is None:
+        raise AssertionError("the timed fixture pass lost records or its "
+                             "NPORE_TIMING line")
+    split["per_read_us"] = dict(zip(
+        ("submit", "collect_wait", "finalize_emit", "decode_wait",
+         "main_wait"), map(int, m.groups())))
+    split["reads"] = n_fx
+    print("[host split] fixture pass: " + json.dumps(split), flush=True)
+
+    # --- [fuzz] and [bench engine] ---
+    from npore_tpu_torch.scripts import bench_engine, fuzz_parity
+    dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
+    fuzz = fuzz_parity.run(FUZZ_CASES, 0, "cuda", stats)
+    fuzz["launches_k4_k1_k2"] = (npinfo_cuda.launches, dp_cuda.launches,
+                                 tb_cuda.launches)
+    print("[fuzz] " + json.dumps(fuzz), flush=True)
+    if fuzz["equal"] != FUZZ_CASES or min(fuzz["launches_k4_k1_k2"]) < 1:
+        raise AssertionError("the fuzzer found the CUDA engine differing "
+                             "from the golden aligner")
+    bench = bench_engine.run(REPLICAS, "cuda", 3, REPO)
+    print("[bench engine] " + json.dumps(bench), flush=True)
+    if bench["bails"]:
+        raise AssertionError("the engine bench fell back to golden")
+
+    shapes, groups, npinfo = {}, {}, {}
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     for name in ("fixture", "mixed", "long"):
         if name == "long":
@@ -1112,6 +1318,9 @@ def main() -> int:
             t["k1_bound"] = k1_bound(wins, batch, tables, cfg, packed)
         t["k2_bound"] = k2_bound(wins, out_k)
         print(f"[times {name}] " + json.dumps(t), flush=True)
+        npinfo[name] = npinfo_check(name, wins, batch, cfg, dev)
+        if name == "fixture":
+            npinfo["split_fixture"] = host_split_group(name, wins, cfg, dev)
         if name != "long" and not torch.equal(packed, plain):
             raise AssertionError(f"K1 planes differ from the plain DP ({name})")
         if not (torch.equal(out_k.buf, out_p.buf)
@@ -1119,6 +1328,8 @@ def main() -> int:
             raise AssertionError(
                 f"K2 output differs from the plain traceback ({name})")
     del flush, packed, batch, out_k, out_c, out_p
+    npinfo["ntails"] = npinfo_check("ntails", *ntails_group(cfg, dev), cfg,
+                                    dev)
     print(f"[K2] k2_long_ms {shapes['long']['k2_ms']} warm, "
           f"{shapes['long']['k2_cold_ms']} cold, at "
           f"{shapes['long']['B']} windows x {shapes['long']['R']} rows",
@@ -1215,6 +1426,9 @@ def main() -> int:
         raise AssertionError(f"the port's path loaded {loaded}")
 
     fx = shapes["fixture"]
+    k4_checks = [npinfo[k] for k in ("fixture", "mixed", "long",
+                                     "ntails")] + [
+        scale["npinfo"]]
     kernels = [
         {"name": "band_dp", "route": "cuda",
          "source": "npore_tpu_torch/csrc/band_dp.cu",
@@ -1271,6 +1485,22 @@ def main() -> int:
          "plain_ms": k3[0]["plain_ms"],
          "bound_ms": k3[0]["bound_ms"], "bound_by": k3[0]["bound_by"],
          "library_ms": None},
+        {"name": "npinfo", "route": "cuda",
+         "source": "npore_tpu_torch/csrc/npinfo.cu",
+         "replaces": "npore_tpu/ops/npinfo_device.py:48",
+         "launches": k4_launches,
+         "max_abs_err": max(t["max_abs_err"] for t in k4_checks),
+         "ms": npinfo["fixture"]["ms"],
+         "device_ms": npinfo["fixture"]["device_ms"],
+         "plain_ms": npinfo["fixture"]["plain_ms"],
+         "bound_ms": npinfo["fixture"]["bound_ms"],
+         "bound_by": npinfo["fixture"]["bound_by"],
+         "library_ms": None,
+         "launches_per_pass": fixture_rps["k4_launches_per_pass"],
+         "std_scale": {"launches": scale["k4_launches"],
+                       "group_ms": scale["npinfo"]["ms"],
+                       "group_device_ms": scale["npinfo"]["device_ms"],
+                       "group_bound_ms": scale["npinfo"]["bound_ms"]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

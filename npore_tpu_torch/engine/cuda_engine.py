@@ -1,21 +1,26 @@
 """Batched realignment engine: windows -> groups -> DP -> traceback.
 
 The counterpart of ``npore_tpu/engine/pallas_engine.PallasEngine``. Windows
-of a batch are sorted by row count and cut into groups; each group is
-packed on the host into one flat byte buffer (``windows.pack_group``),
-copied to the device once, run through the DP and the traceback, and its
-CIGAR bytes and bail flags come back in one copy.
+of a batch are sorted by row count and cut into groups. The host fills
+the first part of each group's flat byte buffer (``windows.fill_group``:
+bases, prefix-I counts and scalars) and copies it to the device once;
+there the n-polymer scan writes the buffer's four int8 planes from the
+bases, as the JAX engine's prepass scans on the accelerator; then the DP
+and the traceback run, and the CIGAR bytes and bail flags come back in one
+copy. ``windows.pack_group``, which scans on the host, is the reference
+the device-built buffer is held to.
 
-With ``plain=False`` (the ``cuda`` engine) the group runs kernels K1 and K2
-on a stream of the engine's own: ``align_batch_async`` only enqueues work
-(pinned buffers, non-blocking copies, an event per group), so the
+With ``plain=False`` (the ``cuda`` engine) the group runs kernels K4 (the
+scan), K1 and K2 on a stream of the engine's own: ``align_batch_async``
+only enqueues work (pinned buffers, non-blocking copies, an event per
+group), so the
 Realigner's pipeline overlaps host work with the device. At most
 ``GROUPS_IN_FLIGHT`` groups of a call wait on the device: a call with more
 (a whole contig of ``standardize_vcf``) collects its oldest group before it
 submits the next, so the pinned host buffers stay bounded by that count,
 not by the call's size. With
-``plain=True`` (the ``torch`` engine) the group runs the plain PyTorch DP
-and traceback on the engine's device, synchronously.
+``plain=True`` (the ``torch`` engine) the group runs the plain PyTorch
+scan, DP and traceback on the engine's device, synchronously.
 
 Over several devices (``devices=``) the groups go round-robin: each
 submitted group runs on the next device of the list, with that device's
@@ -46,13 +51,13 @@ import torch
 
 from ..config import AlignConfig
 from ..device import resolve_device
-from ..ops import dp_cuda, tb_cuda
+from ..ops import dp_cuda, npinfo_cuda, tb_cuda
 from ..ops.band_dp import check_band, pack_planes, window_dp
 from ..ops.tables import tables_from_numpy
 from ..ops.traceback import decode, traceback
 from ..parallel.distributed import local_devices
-from .windows import (Window, build_windows, group_layout, group_nbytes,
-                      pack_group, tensor_views)
+from .windows import (Window, build_windows, fill_group, group_layout,
+                      group_nbytes, prefix_nbytes, tensor_views)
 
 GROUP_WINDOWS = 1024            # windows per group (one CTA each in K1)
 GROUP_CELLS = 1 << 21           # windows x rows per group: bounds the
@@ -129,23 +134,28 @@ class CudaEngine:
             lo = hi
 
     def _submit(self, group: Sequence[Window]):
-        """Enqueue ``group`` on the next device of the round-robin."""
+        """Enqueue ``group`` on the next device of the round-robin: the
+        host fills the buffer's prefix, the device its n-polymer planes."""
         cfg = self.cfg
         dev = next(self._next_device)
         tables = self._tables[dev]
         R = max(w.b_rows for w in group)
         L = max(max(w.n_ins + w.n_del for w in group), 1)
         layout = group_layout(len(group), R, cfg.max_n)
+        nbytes = group_nbytes(layout)
         if not self._cuda:
-            buf, _ = pack_group(group, R, cfg.max_n)
-            batch = tensor_views(torch.from_numpy(buf).to(dev), layout)
-            return self._run(batch, L, tables).buf.cpu(), L, None
-        host = torch.empty(group_nbytes(layout), dtype=torch.uint8,
+            head = fill_group(group, R, cfg.max_n)
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            buf[:len(head)] = torch.from_numpy(head)
+            return self._run(tensor_views(buf, layout), L,
+                             tables).buf.cpu(), L, None
+        host = torch.empty(prefix_nbytes(layout), dtype=torch.uint8,
                            pin_memory=True)
-        pack_group(group, R, cfg.max_n, out=host.numpy())
+        fill_group(group, R, cfg.max_n, out=host.numpy())
         stream = self._streams[dev]
         with torch.cuda.device(dev), torch.cuda.stream(stream):
-            dev_buf = host.to(dev, non_blocking=True)
+            dev_buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            dev_buf[:host.numel()].copy_(host, non_blocking=True)
             out = self._run(tensor_views(dev_buf, layout), L, tables)
             res = torch.empty(out.buf.shape, dtype=torch.uint8,
                               pin_memory=True)
@@ -155,10 +165,14 @@ class CudaEngine:
         return res, L, done
 
     def _run(self, batch, L: int, tables):
+        """The n-polymer planes, the DP and the traceback of a group whose
+        buffer holds ``fill_group``'s prefix."""
         cfg = self.cfg
         if self.plain:
+            npinfo_cuda.fill_planes_plain(batch, cfg)
             packed = pack_planes(*window_dp(batch, tables, cfg))
             return traceback(packed, batch, cfg, L)
+        npinfo_cuda.fill_planes(batch, cfg)
         packed = dp_cuda.band_dp(batch, tables, cfg)
         return tb_cuda.traceback(packed, batch, cfg, L)
 

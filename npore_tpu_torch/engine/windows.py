@@ -6,9 +6,12 @@ prefix-I path counts. Chunk boundaries and slices replicate the reference
 exactly (reference: src/aln.pyx:344-358, 445-456).
 
 ``pack_batch`` is the JAX package's layout (int32 planes plus the start
-tables), kept as the reference of ``pack_group``; ``pack_group`` is the
-engines' packer: one flat byte buffer per group (one host-to-device copy),
-int8 planes, and no start tables (the DP reads them from ``cont``).
+tables), kept as the reference of ``pack_group``; ``pack_group`` packs one
+flat byte buffer per group with int8 n-polymer planes from the host scan,
+and no start tables (the DP reads them from ``cont``). The engine fills
+only that buffer's prefix on the host (``fill_group``) and scans on the
+device (``ops/npinfo_cuda.fill_planes``); ``pack_group`` is the reference
+it is held to byte for byte.
 """
 from __future__ import annotations
 
@@ -166,6 +169,12 @@ def group_nbytes(layout) -> int:
     return off + int(np.prod(shape)) * dt.itemsize
 
 
+def prefix_nbytes(layout) -> int:
+    """Bytes of a group buffer before its n-polymer planes, which
+    ``group_layout`` places last: the part the host fills."""
+    return layout[-len(PLANES)][1]
+
+
 def _views(buf, layout, view):
     return {name: view(buf, off, shape, dt) for name, off, shape, dt in layout}
 
@@ -184,13 +193,46 @@ def tensor_views(buf: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
         o:o + int(np.prod(sh)) * dt.itemsize].view(_TORCH_DT[dt]).view(sh))
 
 
+def fill_group(windows: Sequence[Window], R_max: int, max_n: int,
+               out: np.ndarray = None) -> np.ndarray:
+    """The host's part of a group buffer: every byte of ``pack_group``'s
+    buffer before the n-polymer planes (``inss``, the scalars, ``seqbuf``
+    and ``refbuf``, and the alignment gaps), which ``group_layout`` places
+    last; the device writes the planes from ``seqbuf``/``refbuf``
+    (``ops/npinfo_cuda.fill_planes``). Writes into ``out`` if given (e.g.
+    the numpy view of a pinned tensor). Returns the prefix, of
+    ``prefix_nbytes`` bytes."""
+    layout = group_layout(len(windows), R_max, max_n)
+    head, off = layout[:-len(PLANES)], prefix_nbytes(layout)
+    buf = np.empty(off, np.uint8) if out is None else out[:off]
+    end = 0
+    for name, o, shape, dt in head:         # the alignment gaps
+        buf[end:o] = 0
+        end = o + int(np.prod(shape)) * dt.itemsize
+    buf[end:off] = 0
+    v = numpy_views(buf, head)
+    v["inss"][:, :8] = 0
+    v["seqbuf"][:] = 0
+    v["refbuf"][:] = 0
+    for i, w in enumerate(windows):
+        v["seqbuf"][i, PADL:PADL + len(w.seq)] = w.seq
+        v["refbuf"][i, PADL:PADL + len(w.ref)] = w.ref
+        v["inss"][i, 8:8 + w.b_rows] = w.inss_local
+        v["inss"][i, 8 + w.b_rows:] = w.inss_local[-1]
+    for k in SCALARS:
+        v[k][:] = [getattr(w, k) for w in windows]
+    return buf
+
+
 def pack_group(windows: Sequence[Window], R_max: int, max_n: int,
                out: np.ndarray = None) -> Tuple[np.ndarray, list]:
     """Pack windows into one flat byte buffer (``out`` if given, e.g. the
     numpy view of a pinned tensor). Same values as ``pack_batch``: L and
     L_IDX never exceed max_l <= 100 (``check_band``), so int8 holds them.
     n-polymer info comes from the C++ scanner (bit-identical to
-    ``get_np_info_vec``)."""
+    ``get_np_info_vec``) at max_l 100. The engines fill groups with
+    ``fill_group`` and scan on the device; this is the host reference
+    they are held to."""
     layout = group_layout(len(windows), R_max, max_n)
     nbytes = group_nbytes(layout)
     buf = np.zeros(nbytes, np.uint8) if out is None else out[:nbytes]

@@ -24,7 +24,7 @@ from typing import Dict, Iterable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("band_dp", "traceback", "tier_select")
+SOURCES = ("band_dp", "traceback", "tier_select", "npinfo")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]       # -v: registers/spills into build_logs
@@ -45,6 +45,7 @@ _ARGTYPES = {
     "traceback": {"npore_traceback": [_P] * 8 + [_I] * 7 + [_P],
                   "npore_traceback_occupancy": [_I] * 2},
     "tier_select": {"npore_tier_select": [_P] * 3 + [_I] * 5 + [_P]},
+    "npinfo": {"npore_npinfo": [_P] * 10 + [_I] * 5 + [_P]},
 }
 
 

@@ -107,6 +107,34 @@ def genome_with_runs(rng, n_bases: int):
     return "".join(chunks)[:n_bases], runs[runs[:, 0] < n_bases]
 
 
+def n_tail_reads(rng, n_reads: int = 40):
+    """(ref, seq, '=X' CIGAR) of reads dense in periodic runs that hold an
+    N (ANAN..., units of 2-3 bases with one N), each ending in such a run,
+    cut at a random phase; seq is ref with 3% substitutions. The first two
+    are ANANAN and ANANA. A window that ends in such a run is where a scan
+    must stop at the window's length: an N there matches the zero padding
+    past it."""
+    out = [("ANANAN",) * 2, ("ANANA",) * 2]
+    for _ in range(n_reads):
+        parts, n = [], int(rng.integers(12, 400))
+        while sum(map(len, parts)) < n or len(parts) % 2:
+            if len(parts) % 2 == 0:
+                parts.append(_bases(rng, int(rng.integers(1, 30))))
+            else:
+                unit = list(_bases(rng, int(rng.integers(1, 3))) + "N")
+                rng.shuffle(unit)
+                k = len(unit) * int(rng.integers(2, 16))
+                parts.append(("".join(unit) * k)[:k - int(rng.integers(
+                    0, len(unit)))])
+        ref = "".join(parts)
+        sub = rng.random(len(ref)) < 0.03
+        seq = "".join(_bases(rng, 1) if s else c for c, s in zip(ref, sub))
+        out.append((ref, seq))
+    return [(ref, seq, "".join("=" if a == b else "X"
+                               for a, b in zip(ref, seq)))
+            for ref, seq in out]
+
+
 def make_genome(rng, n_bases: int) -> str:
     """Random sequence with injected n-polymer runs (~1 per 150 bp,
     periods 1-6, 3-20 units), drawn as ``scripts/genome_scale.py`` draws

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 on a CUDA card against their plain PyTorch
+"""Kernels K1, K2, K3 and K4 on a CUDA card against their plain PyTorch
 versions.
 
 These need the card: on the CPU they skip. On a machine with one, run
@@ -13,7 +13,7 @@ from npore_tpu_torch.engine import windows as tw
 from npore_tpu_torch.engine.realigner import Realigner
 from npore_tpu_torch.golden.align import align as golden_align
 from npore_tpu_torch.ops import band_dp as tdp
-from npore_tpu_torch.ops import dp_cuda, tb_cuda, tier_select_cuda
+from npore_tpu_torch.ops import dp_cuda, npinfo_cuda, tb_cuda, tier_select_cuda
 from npore_tpu_torch.ops.tables import tables_from_numpy
 from npore_tpu_torch.ops.tier_select import tier_select_plain
 from npore_tpu_torch.ops.traceback import MAT, traceback
@@ -21,6 +21,7 @@ from npore_tpu_torch.testing.planes import path_group, random_cigar
 
 from test_torch_dp import SETS, random_cases, synthetic_cases, windows_of
 from test_torch_engine import _items
+from test_torch_npinfo_device import GROUPS, group_of, seeded_rows
 from test_torch_tier_select import SHAPES, make_input
 
 pytestmark = pytest.mark.cuda
@@ -236,3 +237,109 @@ def test_gini_moments_cuda_equal_cpu(cuda_device):
     want = gini_moments_device(b, iv, "cpu")
     for g, w in zip(got, want):
         assert g.dtype == np.int32 and np.array_equal(g, w)
+
+
+def _k4_check(wins, R, cfg, device):
+    """K4 on a device buffer filled with 0xA5 around fill_group's prefix:
+    every array equal to pack_group's and the planes to the plain scan's
+    on the same device tensors."""
+    want, layout = tw.pack_group(wins, R, cfg.max_n)
+    head = tw.fill_group(wins, R, cfg.max_n)
+    off = len(head)
+    buf = torch.full((tw.group_nbytes(layout),), 0xA5, dtype=torch.uint8,
+                     device=device)
+    buf[:off].copy_(torch.from_numpy(head))
+    batch = tw.tensor_views(buf, layout)
+    n0 = npinfo_cuda.launches
+    npinfo_cuda.fill_planes(batch, cfg)
+    torch.cuda.synchronize()
+    assert npinfo_cuda.launches == n0 + 1
+    got = buf.cpu().numpy()
+    for k, o, shape, dt in layout:
+        n = int(np.prod(shape)) * dt.itemsize
+        assert np.array_equal(got[o:o + n], want[o:o + n]), k
+    planes = {k: batch[k].clone() for k in tw.PLANES}
+    npinfo_cuda.fill_planes_plain(batch, cfg)
+    for k in tw.PLANES:
+        assert torch.equal(planes[k], batch[k]), k
+
+
+@pytest.mark.parametrize("name", sorted(GROUPS))
+def test_k4_equal_pack_group_and_plain(cuda_device, data_dir, name):
+    items, cfg = GROUPS[name](data_dir)
+    wins, R = group_of(items, cfg)
+    _k4_check(wins, R, cfg, cuda_device)
+
+
+@pytest.mark.parametrize("max_n,max_l", [(6, 100), (3, 7), (1, 100)])
+def test_k4_seeded_rows(cuda_device, max_n, max_l):
+    """K4 against the plain scan on seeded repeat-dense rows (N runs and
+    tails, rows ending in periodic runs that hold an N, runs past max_l) up
+    to whole-contig widths: 1,024 threads and about 140 KB of shared
+    memory a row at 20,001 positions. Each row's length is
+    min(n_ins + 1, guard), taken from either side of the min in turn."""
+    rows = seeded_rows(seed=2, n_rows=61, max_len=3000)     # 72 rows
+    rng = np.random.default_rng(4)
+    rows += [rng.integers(0, 5, 20001).astype(np.uint8),
+             np.tile(np.array([1, 2, 2], np.uint8), 6667)]
+    A = 80 + max(len(r) for r in rows) + 40
+    B = len(rows) // 2
+    assert len(rows) == 2 * B
+    cfg = AlignConfig(max_n=max_n, max_l=max_l)
+    batch = {k: torch.zeros(B, A, dtype=torch.int8) for k in
+             ("seqbuf", "refbuf")}
+    batch.update({k: torch.zeros(B, dtype=torch.int32) for k in
+                  npinfo_cuda.LENGTHS})
+    for i, r in enumerate(rows[:2 * B]):
+        side = i // B
+        batch[("seqbuf", "refbuf")[side]][i % B, 80:80 + len(r)] = \
+            torch.from_numpy(r.astype(np.int8))
+        span, guard = (("n_ins", "seq_guard"), ("n_del", "ref_guard"))[side]
+        batch[span][i % B] = len(r) - 1 + 7 * (i % 2)
+        batch[guard][i % B] = len(r) + 7 * (1 - i % 2)
+    batch = {k: v.to(cuda_device) for k, v in batch.items()}
+    for k in tw.PLANES:
+        batch[k] = torch.full((B, A, max_n), 0x5A, dtype=torch.int8,
+                              device=cuda_device)
+    npinfo_cuda.fill_planes(batch, cfg)
+    torch.cuda.synchronize()
+    got = {k: batch[k].clone() for k in tw.PLANES}
+    npinfo_cuda.fill_planes_plain(batch, cfg)
+    for k in tw.PLANES:
+        assert torch.equal(got[k], batch[k]), k
+
+
+def test_k4_rejects_bad_inputs(cuda_device):
+    cfg = AlignConfig()
+    wins, R = group_of(GROUPS["repeats"](None)[0], cfg)
+    layout = tw.group_layout(len(wins), R, cfg.max_n)
+    buf = torch.zeros(tw.group_nbytes(layout), dtype=torch.uint8,
+                      device=cuda_device)
+    batch = tw.tensor_views(buf, layout)
+    with pytest.raises(ValueError):
+        npinfo_cuda.fill_planes(dict(batch, l_ref=batch["l_ref"][:, :-1]),
+                                cfg)
+    with pytest.raises(ValueError):
+        npinfo_cuda.fill_planes(batch, AlignConfig(max_n=9))
+    with pytest.raises(ValueError):                  # the lengths' scalars
+        npinfo_cuda.fill_planes(dict(batch, n_del=batch["n_del"].long()),
+                                cfg)
+
+
+def test_cuda_engine_launches_k4_once_a_group(cuda_device, score_matrices,
+                                              monkeypatch):
+    """The engine scans every group on the card: one K4 launch a group,
+    golden CIGARs."""
+    from npore_tpu_torch.engine import cuda_engine
+    sub_scores, np_scores, _, _ = score_matrices
+    cases, cfg = CASES["synthetic"]
+    items = _items(cases)
+    eng = cuda_engine.CudaEngine(sub_scores, np_scores, cfg,
+                                 devices=[cuda_device])
+    eng.group_windows = 3
+    n0 = npinfo_cuda.launches
+    got = eng.align_batch(items)
+    assert npinfo_cuda.launches - n0 == eng.groups > 1
+    for it, g in zip(items, got):
+        assert g == golden_align(it.ref, it.seq, it.cigar, sub_scores,
+                                 np_scores, cfg)

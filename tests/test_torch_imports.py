@@ -36,6 +36,7 @@ MODULES = [
     "npore_tpu_torch.model.plots",
     "npore_tpu_torch.ops._build",
     "npore_tpu_torch.ops.npinfo_host",
+    "npore_tpu_torch.ops.npinfo_device",
     "npore_tpu_torch.ops.tables",
     "npore_tpu_torch.ops.band_dp",
     "npore_tpu_torch.ops.traceback",
@@ -43,6 +44,7 @@ MODULES = [
     "npore_tpu_torch.ops.dp_cuda",
     "npore_tpu_torch.ops.tb_cuda",
     "npore_tpu_torch.ops.tier_select_cuda",
+    "npore_tpu_torch.ops.npinfo_cuda",
     "npore_tpu_torch.engine.regions",
     "npore_tpu_torch.engine.stats",
     "npore_tpu_torch.engine.windows",
@@ -60,6 +62,8 @@ MODULES = [
     "npore_tpu_torch.scripts.kernel_ab",
     "npore_tpu_torch.scripts.multihost_scaling",
     "npore_tpu_torch.scripts.dryrun_multichip",
+    "npore_tpu_torch.scripts.fuzz_parity",
+    "npore_tpu_torch.scripts.bench_engine",
     "npore_tpu_torch.testing.synth",
     "npore_tpu_torch.testing.planes",
     "npore_tpu_torch.testing.chunks",
@@ -234,4 +238,32 @@ def test_dryrun_multichip_in_fresh_interpreter_loads_no_jax():
     lines = res.stdout.strip().splitlines()
     assert any("sharded step ok" in l for l in lines)
     assert any("golden-exact" in l for l in lines)
+    assert json.loads(lines[-1]) == {"rc": 0, "loaded": []}
+
+
+@pytest.mark.parametrize("script,argv,expect", [
+    ("fuzz_parity", ["5", "0", "--engine", "torch"], "parity: 5/5"),
+    ("bench_engine", ["--help"], "usage:")])
+def test_script_in_fresh_interpreter_loads_no_jax(script, argv, expect):
+    """The ported fuzzer (5 cases on the plain path) and the engine bench's
+    usage, in a fresh interpreter: exit 0, and neither jax nor npore_tpu
+    loaded."""
+    code = (
+        "import json, runpy, sys\n"
+        f"sys.argv = ['x'] + {argv!r}\n"
+        "rc = 0\n"
+        "try:\n"
+        f"    runpy.run_module('npore_tpu_torch.scripts.{script}', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    rc = e.code\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'npore_tpu' or "
+        "m.startswith('npore_tpu.'))\n"
+        "print(json.dumps({'rc': rc, 'loaded': bad}))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert any(expect in l for l in lines)
     assert json.loads(lines[-1]) == {"rc": 0, "loaded": []}
