@@ -40,7 +40,9 @@ Phases:
      bytes around ``windows.fill_group``'s prefix must give every array of
      ``pack_group``'s host-built buffer byte for byte, and planes equal to
      the plain scan's on the same device tensors; K4's time as paid and
-     queued, the plain scan's, K4's bound and the H2D bytes of both
+     queued, the plain scan's, K4's bound, its launch plan (threads,
+     staged, shared memory) with the CTAs resident an SM
+     (``npinfo_cuda.occupancy``) and the H2D bytes of both
      buffers. [host split] on the fixture group: pack_group into a pinned
      buffer and its full copy against fill_group into a pinned prefix, its
      copy and K4, in turns (old, new, new, old): host µs and ms until the
@@ -299,8 +301,10 @@ def npinfo_check(tag: str, wins, batch, cfg, dev) -> dict:
                      device=dev)
     buf[:off].copy_(torch.from_numpy(head))
     got = tensor_views(buf, layout)
-    t = {"group": tag, "B": len(wins), "R": R, "A": got["seqbuf"].shape[1],
-         "threads": npinfo_cuda.threads_for(got["seqbuf"].shape[1])}
+    A = got["seqbuf"].shape[1]
+    t = {"group": tag, "B": len(wins), "R": R, "A": A,
+         "plan": npinfo_cuda.launch_plan(A, cfg.max_n)._asdict(),
+         "ctas_per_sm": npinfo_cuda.occupancy(A, cfg.max_n)}
     t["ms"], _ = median_ms(lambda: npinfo_cuda.fill_planes(got, cfg))
     t["device_ms"], _ = median_ms(lambda: npinfo_cuda.fill_planes(got, cfg),
                                   queued=True)

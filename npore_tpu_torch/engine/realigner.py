@@ -38,6 +38,8 @@ class Realigner:
     def __init__(self, sub_scores: np.ndarray, np_scores: np.ndarray,
                  cfg: AlignConfig = AlignConfig(), engine: str = "cuda",
                  device=None):
+        if engine == "auto":            # RealignConfig's default: the
+            engine = "cuda"             # realign CLI's default engine
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r} ({'|'.join(ENGINES)})")
         self.cfg = cfg

@@ -230,7 +230,16 @@ def golden_align_native(full_ref: np.ndarray, full_seq: np.ndarray,
                         cigar: str, sub_scores: np.ndarray,
                         np_scores: np.ndarray, cfg) -> Optional[str]:
     """Native banded n-polymer DP, bit-exact vs golden/align.py
-    (reference: src/aln.pyx:379-787). Returns None without a compiler."""
+    (reference: src/aln.pyx:379-787). Returns None without a compiler.
+
+    The C++ aligner indexes ``np_scores`` with a row stride of
+    ``cfg.max_l + 1``, so a wider table (stats counted at a larger max_l)
+    is cut to (max_n, max_l + 1, max_l + 1) first, as golden/align.py
+    reads it; a narrower one raises."""
+    l1 = cfg.max_l + 1
+    if min(np_scores.shape[1:]) < l1:
+        raise ValueError(f"np_scores {tuple(np_scores.shape)} is narrower "
+                         f"than max_l + 1 = {l1}")
     lib = get_lib()
     if lib is None:
         return None
@@ -239,7 +248,7 @@ def golden_align_native(full_ref: np.ndarray, full_seq: np.ndarray,
     seq8 = np.ascontiguousarray(full_seq, dtype=np.uint8)
     cig8 = np.frombuffer(cig.encode("ascii"), dtype=np.uint8)
     subs = np.ascontiguousarray(sub_scores, dtype=np.float32)
-    nps = np.ascontiguousarray(np_scores, dtype=np.float32)
+    nps = np.ascontiguousarray(np_scores[:, :l1, :l1], dtype=np.float32)
     out = ctypes.create_string_buffer(len(cig) + 16)
     n = lib.golden_align(
         ref8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(ref8),

@@ -45,7 +45,8 @@ _ARGTYPES = {
     "traceback": {"npore_traceback": [_P] * 8 + [_I] * 7 + [_P],
                   "npore_traceback_occupancy": [_I] * 2},
     "tier_select": {"npore_tier_select": [_P] * 3 + [_I] * 5 + [_P]},
-    "npinfo": {"npore_npinfo": [_P] * 10 + [_I] * 5 + [_P]},
+    "npinfo": {"npore_npinfo": [_P] * 10 + [_I] * 6 + [_P],
+               "npore_npinfo_occupancy": [_I] * 4},
 }
 
 

@@ -274,14 +274,17 @@ def test_k4_equal_pack_group_and_plain(cuda_device, data_dir, name):
 @pytest.mark.parametrize("max_n,max_l", [(6, 100), (3, 7), (1, 100)])
 def test_k4_seeded_rows(cuda_device, max_n, max_l):
     """K4 against the plain scan on seeded repeat-dense rows (N runs and
-    tails, rows ending in periodic runs that hold an N, runs past max_l) up
-    to whole-contig widths: 1,024 threads and about 140 KB of shared
+    tails, rows ending in periodic runs that hold an N, runs past max_l,
+    runs of more than 128 units, where the kernel clamps its run byte) up
+    to whole-contig widths: 1,024 threads and about 120 KB of shared
     memory a row at 20,001 positions. Each row's length is
     min(n_ins + 1, guard), taken from either side of the min in turn."""
     rows = seeded_rows(seed=2, n_rows=61, max_len=3000)     # 72 rows
     rng = np.random.default_rng(4)
     rows += [rng.integers(0, 5, 20001).astype(np.uint8),
-             np.tile(np.array([1, 2, 2], np.uint8), 6667)]
+             np.tile(np.array([1, 2, 2], np.uint8), 6667),
+             np.tile(np.array([2, 3], np.uint8), 400),
+             np.tile(np.array([1, 2, 4, 3, 3, 1], np.uint8), 150)]
     A = 80 + max(len(r) for r in rows) + 40
     B = len(rows) // 2
     assert len(rows) == 2 * B

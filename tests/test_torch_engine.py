@@ -156,6 +156,23 @@ def test_engine_rejects_max_l_past_tables(score_matrices, engine):
                   engine=engine)
 
 
+def test_realigner_auto_engine_is_cuda(score_matrices, monkeypatch):
+    """RealignConfig's default engine, "auto", runs the CUDA engine, the
+    realign CLI's default (the JAX Realigner maps it to its device engine).
+    The engine is replaced by a stand-in that records how it was built, so
+    building needs no card."""
+    from npore_tpu_torch.config import RealignConfig
+    from npore_tpu_torch.engine import cuda_engine
+    sub_scores, np_scores, _, _ = score_matrices
+    built = []
+    monkeypatch.setattr(cuda_engine, "CudaEngine",
+                        lambda *a, **k: built.append(k) or object())
+    assert RealignConfig().engine == "auto"
+    rl = Realigner(sub_scores, np_scores, engine=RealignConfig().engine)
+    assert rl.engine == "cuda"
+    assert built == [{"device": None, "plain": False}]
+
+
 @pytest.fixture(scope="module")
 def pallas_engine(score_matrices):
     from npore_tpu.engine.pallas_engine import PallasEngine

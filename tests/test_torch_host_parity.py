@@ -68,6 +68,54 @@ def _seqs(seed=5, n=8):
     return out
 
 
+def load_native_libs(cache: str) -> None:
+    """Load both packages' C++ libraries. The JAX package's build writes
+    ``libnpore_native.so`` in place in a cache shared by every test worker,
+    so a worker can load the file while another still writes it; the load
+    fails, the failure latches and that worker's ``get_lib()`` stays None.
+    Then the library is built anew in ``cache``, this worker's own, and
+    loaded; the port's library (built to a temporary name and renamed) is
+    loaded again too if it failed."""
+    if jnat.get_lib() is None:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("NPORE_NATIVE_CACHE", cache)
+            jnat._lib, jnat._tried = None, False
+            jnat.get_lib()
+    if tnat.get_lib() is None:
+        tnat._lib, tnat._tried = None, False
+        tnat.get_lib()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_libs(tmp_path_factory):
+    """Both C++ libraries, loaded before any test of this file: the
+    comparisons reach them directly and through the readers and writers."""
+    load_native_libs(str(tmp_path_factory.mktemp("npore_native")))
+    assert tnat.get_lib() is not None and jnat.get_lib() is not None
+
+
+def test_native_libs_recover_from_a_half_written_library(tmp_path,
+                                                         monkeypatch):
+    """A JAX library cut short in its cache, as a worker finds it while
+    another writes it, fails to load and stays failed; load_native_libs
+    builds it anew in a cache of its own and loads it."""
+    with open(jnat._build(), "rb") as fh:
+        head = fh.read(256)
+    cache = tmp_path / "shared"
+    cache.mkdir()
+    (cache / "libnpore_native.so").write_bytes(head)
+    monkeypatch.setenv("NPORE_NATIVE_CACHE", str(cache))
+    monkeypatch.setattr(jnat, "_lib", None)
+    monkeypatch.setattr(jnat, "_tried", False)
+    assert jnat.get_lib() is None and jnat.get_lib() is None
+    load_native_libs(str(tmp_path / "own"))
+    lib = jnat.get_lib()
+    assert lib is not None and lib._name == str(tmp_path / "own" /
+                                                 "libnpore_native.so")
+    assert np.array_equal(jnat.np_info(_seqs()[1], 6),
+                          jnph.get_np_info_vec(_seqs()[1], 6))
+
+
 @pytest.fixture(scope="module")
 def fixture_reads(data_dir):
     path = os.path.join(data_dir, "reads.bam")

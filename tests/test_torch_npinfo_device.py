@@ -230,6 +230,35 @@ def test_fill_planes_rejects_other_devices():
         npinfo_cuda.fill_planes(tw.tensor_views(buf, layout), cfg)
 
 
+@pytest.mark.parametrize("A,threads,staged,smem", [
+    (1527, 128, True, 23712),       # the fixture group
+    (2892, 192, True, 42816),       # a mixed group
+    (20121, 1024, False, 122720),   # whole-contig windows
+    (npinfo_cuda.largest_A(6), 1024, False, 232448)])
+def test_launch_plan_shapes(A, threads, staged, smem):
+    """K4's launch: staged where the two planes fit the shared memory, else
+    unstaged; the widest accepted row fills it exactly."""
+    plan = npinfo_cuda.launch_plan(A, 6)
+    assert plan == (threads, staged, smem)
+    assert plan.smem_bytes == npinfo_cuda.smem_bytes(A, 6, staged)
+
+
+def test_launch_plan_fits_shared_memory_or_raises():
+    for max_n in range(1, npinfo_cuda.MAX_N + 1):
+        top = npinfo_cuda.largest_A(max_n)
+        for A in (81, 121, 1011, 1527, 2892, 5000, 20121, top - 1, top):
+            plan = npinfo_cuda.launch_plan(A, max_n)
+            assert 0 < plan.smem_bytes <= 232448
+            assert plan.smem_bytes == npinfo_cuda.smem_bytes(A, max_n,
+                                                             plan.staged)
+            assert plan.threads % 32 == 0 and 128 <= plan.threads <= 1024
+            if plan.staged:         # staged wherever it fits
+                continue
+            assert npinfo_cuda.smem_bytes(A, max_n, True) > 232448
+        with pytest.raises(ValueError, match="shared memory"):
+            npinfo_cuda.launch_plan(top + 1, max_n)
+
+
 def test_threads_for_shapes():
     assert npinfo_cuda.threads_for(80 + 1407 + 40) == 128
     assert npinfo_cuda.threads_for(80 + 2812 + 40) == 192
