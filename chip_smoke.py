@@ -111,7 +111,22 @@ Phases:
  19. [dryrun] scripts.dryrun_multichip.main(["--device", "cuda", "--n",
      "2"]): the sharded step and CudaEngine over [cuda:0, cuda:0],
      golden-exact;
- 20. a JSON line of kernels (launches on their path and on the new paths,
+ 20. [genome scale] scripts.genome_scale.main at the JAX script's defaults
+     (a seeded 5 Mbp contig with an n-polymer run about every 150 bp,
+     2,000 reads, seed 11; stages realign, parity, stats, bed, std with
+     --engine cuda, std on the 15 kb contig2), its stdout captured and
+     each stage's JSON line printed again: all 2,000 reads written,
+     golden parity 8/8, 51 stats chunks with substitutions, more than
+     1,000 regions in the ``all`` BED, a standardized record; K4, K1 and
+     K2 launched in the realign stage and again in the std stage (the
+     wrappers' counts at each stage's JSON line); the realign CLI's
+     golden-fallback count (0 when it prints none), reads/s, wall
+     seconds a stage and the process's peak RSS before and after;
+ 21. [scripts] the port's calc_beds.sh on that FASTA and BED, whose files
+     must equal the bed stage's byte for byte, and ``python3 -m
+     npore_tpu_torch.scripts.tag_unphased`` on tests/data/reads.bam: 10
+     records, each with an HP tag;
+ 22. a JSON line of kernels (launches on their path and on the new paths,
      error, times, and the least time the card could take for the same
      work; K4's line replaces the JAX engine's XLA scan, not a
      pallas_call), then the device line last.
@@ -123,6 +138,7 @@ each rank that phases 16-17 start.
 from __future__ import annotations
 
 import contextlib
+import filecmp
 import io
 import json
 import os
@@ -174,6 +190,14 @@ SCALE_CONTIGS = 4
 SCALE_READS = 500
 SCALE_RANKS = (2, 4)
 SCALE_ROUNDS = 2
+# [genome scale]: scripts/genome_scale.py's defaults, on the card
+GENOME_READS = 2000
+GENOME_STD_CONTIG = "contig2"
+GENOME_ARGV = ["--mbp", "5", "--reads", str(GENOME_READS), "--seed", "11",
+               "--parity_sample", "8", "--std_contig", GENOME_STD_CONTIG,
+               "--stages", "realign,stats,bed,std", "--engine", "cuda"]
+GENOME_TAG = "g5m_r2000_s11v2"        # its fixtures' names in the workdir
+GENOME_CHUNKS = 51                    # 5 Mbp / 100 kb + 1
 
 
 def nvidia_smi() -> str:
@@ -1077,6 +1101,202 @@ def purity_mesh_phase() -> None:
         raise AssertionError("gini_moments_device over a mesh differs")
 
 
+class StageLog(io.StringIO):
+    """Captured stdout that notes ``counts()`` when a stage's JSON line is
+    written (genome_scale prints one as each stage ends)."""
+
+    def __init__(self, counts):
+        super().__init__()
+        self.counts = counts
+        self.at = {}
+
+    def write(self, s):
+        if s.startswith('{"stage": '):
+            self.at[json.loads(s)["stage"]] = self.counts()
+        return super().write(s)
+
+
+def genome_golden(workdir: str, stats: str, sub_scores, np_scores,
+                  cfg) -> dict:
+    """The [genome scale] run held against the golden aligners: every read
+    of gs_realign.sam against the C++ golden aligner (threads: ctypes lets
+    go of the GIL), and gs_std.vcf.gz against the one standardize_vcf
+    --engine golden writes for the same contig (a subprocess, meanwhile)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from npore_tpu_torch.io.bam import open_alignment_file
+    from npore_tpu_torch.io.cigar import finalize_cigar
+    from npore_tpu_torch.native import golden_align_native
+    fx = os.path.join(workdir, GENOME_TAG)
+    pre = os.path.join(workdir, "gs_std_golden")
+    t0 = time.perf_counter()
+    with open(pre + ".log", "w") as log:
+        std = subprocess.Popen(
+            [sys.executable, "-m", "npore_tpu_torch.cli.standardize_vcf"]
+            + std_argv(fx + ".vcf.gz", fx + ".fasta", pre, stats, "golden")
+            + ["--contig", GENOME_STD_CONTIG],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        with open(os.path.join(workdir, "gs_realign.sam")) as fh:
+            got = {f[0]: f[5] for f in (line.split("\t") for line in fh
+                                        if not line.startswith("@"))}
+        reads = list(open_alignment_file(fx + ".bam"))
+
+        def want(rec):
+            ref, seq, cigar = rec.aln
+            return finalize_cigar(golden_align_native(
+                ref, seq, cigar, sub_scores, np_scores, cfg), ref, seq)
+        with ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1)) as ex:
+            wants = list(ex.map(want, reads))
+        differ = [r.qname for r, w in zip(reads, wants)
+                  if got.get(r.qname) != w]
+        reads_s = time.perf_counter() - t0
+        rc = std.wait(timeout=900)
+    finally:
+        if std.poll() is None:
+            std.kill()
+            std.wait()
+    std_s = time.perf_counter() - t0
+    same_vcf = rc == 0 and filecmp.cmp(
+        os.path.join(workdir, "gs_std.vcf.gz"), pre + ".vcf.gz",
+        shallow=False)
+    t = {"reads": len(reads), "reads_equal": len(reads) - len(differ),
+         "reads_differ": differ[:10], "reads_s": reads_s,
+         "std_golden_rc": rc, "std_vcf_equal": same_vcf, "std_s": std_s}
+    print(f"[genome scale] golden: {t['reads_equal']}/{len(reads)} "
+          f"realigned CIGARs equal the C++ golden aligner's "
+          f"({reads_s:.2f}s); gs_std.vcf.gz byte-equal to --engine golden's "
+          f"{same_vcf} ({std_s:.2f}s)", flush=True)
+    if rc != 0:
+        with open(pre + ".log") as fh:
+            print(fh.read()[-4000:], flush=True)
+    return t
+
+
+def genome_phase(workdir: str, stats: str, sub_scores, np_scores,
+                 cfg) -> dict:
+    """[genome scale]: the port's genome_scale.main in this process at the
+    JAX script's defaults, with the K4/K1/K2 launches of its realign and
+    std stages; its realigned reads and standardized VCF then held against
+    the golden aligners (``genome_golden``)."""
+    from npore_tpu_torch.ops import dp_cuda, npinfo_cuda, tb_cuda
+    from npore_tpu_torch.scripts import genome_scale
+    names = ("k4", "k1", "k2")
+    log = StageLog(lambda: (npinfo_cuda.launches, dp_cuda.launches,
+                            tb_cuda.launches))
+    rss0 = peak_rss()
+    dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = genome_scale.main(GENOME_ARGV + ["--workdir", workdir])
+    except BaseException:
+        print(log.getvalue()[-4000:], flush=True)
+        raise
+    wall = time.perf_counter() - t0
+    out = log.getvalue()
+    rows = {}
+    for line in out.splitlines():
+        if line.startswith('{"stage": '):
+            rows[json.loads(line)["stage"]] = json.loads(line)
+            print("[genome scale] " + line, flush=True)
+    m = re.search(r"(\d+) alignments used the golden fallback", out)
+    zero = (0, 0, 0)
+    realign = log.at.get("realign", zero)      # the counts start at 0
+    std = [b - a for a, b in zip(log.at.get("bed", zero),
+                                 log.at.get("std", zero))]
+    t = {"rc": rc, "wall_s": wall,
+         "secs": {k: rows[k]["secs"] for k in
+                  ("generate", "realign", "stats", "bed", "std")
+                  if k in rows},
+         "reads_per_s": rows.get("realign", {}).get("reads_per_sec"),
+         "golden_fallbacks": int(m.group(1)) if m else 0,
+         "launches_realign": dict(zip(names, realign)),
+         "launches_std": dict(zip(names, std)),
+         "peak_rss_mb_before": rss0 / 2**20,
+         "peak_rss_mb_after": peak_rss() / 2**20}
+    print("[genome scale] " + json.dumps(t), flush=True)
+    gold = genome_golden(workdir, stats, sub_scores, np_scores, cfg)
+    t["golden"] = gold
+    parity, counts = rows.get("parity", {}), rows.get("stats", {})
+    fails = [what for what, ok in (
+        ("rc", rc == 0),
+        ("stages", all(k in rows for k in ("realign", "parity", "stats",
+                                           "bed", "std", "summary"))),
+        ("parity 8/8", parity.get("ok") is True
+         and parity.get("sampled") == 8),
+        ("stats chunks", counts.get("chunks") == GENOME_CHUNKS
+         and counts.get("subs_total", 0) > 0),
+        ("bed regions", rows.get("bed", {}).get("regions", {}).get(
+            "all", 0) > 1000),
+        ("std records", rows.get("std", {}).get("records", 0) >= 1),
+        ("realign launches", min(realign) >= 1),
+        ("std launches", min(std) >= 1),
+        ("reads = golden", gold["reads"] == GENOME_READS
+         and gold["reads_equal"] == GENOME_READS),
+        ("std VCF = golden", gold["std_vcf_equal"])) if not ok]
+    if fails:
+        raise AssertionError(f"[genome scale] failed: {fails}")
+    return t
+
+
+def scripts_phase(workdir: str) -> None:
+    """[scripts]: calc_beds.sh on the genome-scale fixture (its files =
+    the bed stage's) and tag_unphased on reads.bam with the HP tag taken
+    off half of its reads."""
+    ref = os.path.join(workdir, GENOME_TAG + ".fasta")
+    bed = os.path.join(workdir, GENOME_TAG + ".bed")
+    d = os.path.join(workdir, "calc_beds")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    subprocess.run(["bash", os.path.join(REPO, "npore_tpu_torch", "scripts",
+                                         "calc_beds.sh"),
+                    ref, bed, os.path.join(d, "gs_bed")],
+                   check=True, capture_output=True, timeout=600)
+    secs = time.perf_counter() - t0
+
+    def files(where, names):
+        out = {}
+        for n in names:
+            with open(os.path.join(where, n), "rb") as fh:
+                out[n] = fh.read()
+        return out
+    names = sorted(os.listdir(d))
+    same = files(d, names) == files(workdir, sorted(
+        f for f in os.listdir(workdir) if f.startswith("gs_bed")))
+    print(f"[scripts] calc_beds.sh: {len(names)} files, identical to the "
+          f"bed stage's: {same}, {secs:.2f}s", flush=True)
+    if not same or "gs_bed_all.bed" not in names:
+        raise AssertionError("calc_beds.sh's files differ from the bed "
+                             "stage's")
+    # reads.bam with the HP tag taken off every other read
+    from npore_tpu_torch.io.bam import BamReader
+    from npore_tpu_torch.io.bam_writer import write_bam
+    from npore_tpu_torch.io.sam import SamReader
+    reads = BamReader(os.path.join(REPO, "tests", "data", "reads.bam"))
+    recs = list(reads)
+    hp = {r.qname: r.tags["HP"][1] for r in recs}
+    untagged = {r.qname for r in recs[::2]}
+    for r in recs[::2]:
+        r.tags = {k: v for k, v in r.tags.items() if k != "HP"}
+    bam = os.path.join(workdir, "half_tagged.bam")
+    write_bam(bam, list(reads.references), [int(n) for n in reads.lengths],
+              recs)
+    sam = os.path.join(workdir, "tagged.sam")
+    res = subprocess.run(
+        [sys.executable, "-m", "npore_tpu_torch.scripts.tag_unphased",
+         bam, sam],
+        cwd=REPO, check=True, capture_output=True, text=True, timeout=300)
+    out = {r.qname: r.tags.get("HP", (None, None))[1]
+           for r in SamReader(sam)}
+    want = {q: 0 if q in untagged else v for q, v in hp.items()}
+    print(f"[scripts] tag_unphased on reads.bam with HP taken off "
+          f"{len(untagged)} of {len(hp)} reads: {res.stdout.strip()}; HP "
+          f"0 on those and kept on the rest: {out == want}", flush=True)
+    if (res.stdout != f"tagged {len(untagged)} unphased reads\n"
+            or len(untagged) != 5 or out != want):
+        raise AssertionError("tag_unphased did not tag the unphased reads")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1424,6 +1644,12 @@ def main() -> int:
         raise AssertionError("the dry run did not launch K1 and K2 on both "
                              "shards")
 
+    # --- 20-21. the genome-scale harness and the port's scripts ---
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_genome_")
+    genome = genome_phase(tmp.name, stats, sub_scores, np_scores, cfg)
+    scripts_phase(tmp.name)
+    tmp.cleanup()
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m == "npore_tpu" or m.startswith("npore_tpu."))
     if loaded:
@@ -1456,7 +1682,9 @@ def main() -> int:
              "mesh": mesh["launches"],
              "dist_realign": dist["k1_k2_launches"][0],
              "dist_scale": scale_ranks["k1_launches"],
-             "dryrun": dryrun[0]}},
+             "dryrun": dryrun[0]},
+         "genome_scale": {"realign": genome["launches_realign"]["k1"],
+                          "std": genome["launches_std"]["k1"]}},
         {"name": "traceback", "route": "cuda",
          "source": "npore_tpu_torch/csrc/traceback.cu",
          "replaces": "npore_tpu/ops/pallas_dp.py:981",
@@ -1479,7 +1707,9 @@ def main() -> int:
          "launches_multi_device": {
              "dist_realign": dist["k1_k2_launches"][1],
              "dist_scale": scale_ranks["k2_launches"],
-             "dryrun": dryrun[1]}},
+             "dryrun": dryrun[1]},
+         "genome_scale": {"realign": genome["launches_realign"]["k2"],
+                          "std": genome["launches_std"]["k2"]}},
         {"name": "tier_select", "route": "cuda",
          "source": "npore_tpu_torch/csrc/tier_select.cu",
          "replaces": "scripts/probe_cond.py:50",
@@ -1504,7 +1734,9 @@ def main() -> int:
          "std_scale": {"launches": scale["k4_launches"],
                        "group_ms": scale["npinfo"]["ms"],
                        "group_device_ms": scale["npinfo"]["device_ms"],
-                       "group_bound_ms": scale["npinfo"]["bound_ms"]}},
+                       "group_bound_ms": scale["npinfo"]["bound_ms"]},
+         "genome_scale": {"realign": genome["launches_realign"]["k4"],
+                          "std": genome["launches_std"]["k4"]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 devices without silent fallback."""
 import ast
 import glob
+import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -64,14 +66,30 @@ MODULES = [
     "npore_tpu_torch.scripts.dryrun_multichip",
     "npore_tpu_torch.scripts.fuzz_parity",
     "npore_tpu_torch.scripts.bench_engine",
+    "npore_tpu_torch.scripts.genome_scale",
+    "npore_tpu_torch.scripts.tag_unphased",
+    "npore_tpu_torch.scripts.sankey",
+    "npore_tpu_torch.scripts.plot_sankey",
     "npore_tpu_torch.testing.synth",
     "npore_tpu_torch.testing.planes",
     "npore_tpu_torch.testing.chunks",
 ]
+# sankey.py, a verbatim copy of scripts/sankey.py, imports matplotlib when
+# it is imported; the imports of every module leave it out where
+# matplotlib is missing (plot_sankey imports it only to draw)
+NEEDS_MATPLOTLIB = ["npore_tpu_torch.scripts.sankey"]
+HAVE_MATPLOTLIB = importlib.util.find_spec("matplotlib") is not None
+IMPORTABLE = [m for m in MODULES
+              if HAVE_MATPLOTLIB or m not in NEEDS_MATPLOTLIB]
 PORT_FILES = sorted(
     os.path.relpath(p, REPO) for p in
     glob.glob(os.path.join(REPO, "npore_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py"]
+
+PORT_SHELL = sorted(
+    os.path.relpath(p, REPO) for p in
+    glob.glob(os.path.join(REPO, "npore_tpu_torch", "**", "*.sh"),
+              recursive=True))
 
 
 def _is_jax_package(name):
@@ -104,6 +122,24 @@ def test_no_import_of_the_jax_package(path):
             assert n.split(".")[0] != "jax", f"{path}:{node.lineno} {n}"
 
 
+def test_port_shell_scripts_are_found():
+    assert {os.path.basename(p) for p in PORT_SHELL} >= {
+        "align.sh", "calc_beds.sh", "purity.sh", "realign_pipeline.sh"}
+
+
+@pytest.mark.parametrize("path", PORT_SHELL)
+def test_no_shell_script_runs_the_jax_package(path):
+    """No port shell script names a ``npore_tpu.`` module (only
+    ``npore_tpu_torch.``), runs a script of the JAX package's
+    ``scripts/``, or imports ``jax``."""
+    with open(os.path.join(REPO, path)) as fh:
+        for i, line in enumerate(fh, 1):
+            assert not re.search(r"\bnpore_tpu\.", line), f"{path}:{i}"
+            assert not re.search(r"\bimport jax\b|\bfrom jax\b", line), \
+                f"{path}:{i}"
+            assert "scripts/" not in line.split("#")[0], f"{path}:{i}"
+
+
 def test_cli_in_fresh_interpreter_loads_no_jax(tmp_path, data_dir,
                                                stats_dir):
     """Import every port module, run the realign CLI with --engine torch on
@@ -114,7 +150,7 @@ def test_cli_in_fresh_interpreter_loads_no_jax(tmp_path, data_dir,
             "--engine", "torch"]
     code = (
         "import importlib, json, sys\n"
-        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        f"for m in {IMPORTABLE!r}: importlib.import_module(m)\n"
         "from npore_tpu_torch.cli.realign import main\n"
         f"rc = main({argv!r})\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -163,7 +199,7 @@ def jax_loaded():
     code = (
         "import importlib, json, sys\n"
         f"out = {{m: (importlib.import_module(m), 'jax' in sys.modules or "
-        f"'npore_tpu' in sys.modules)[1] for m in {MODULES!r}}}\n"
+        f"'npore_tpu' in sys.modules)[1] for m in {IMPORTABLE!r}}}\n"
         "print(json.dumps(out))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -171,9 +207,35 @@ def jax_loaded():
     return json.loads(res.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.parametrize("module", MODULES)
+@pytest.mark.parametrize("module", [
+    pytest.param(m, marks=pytest.mark.skipif(
+        m not in IMPORTABLE, reason="needs matplotlib")) for m in MODULES])
 def test_import_loads_no_jax(jax_loaded, module):
     assert jax_loaded[module] is False
+
+
+def test_plot_sankey_needs_matplotlib_only_to_draw():
+    """With matplotlib blocked, plot_sankey imports and prints its usage;
+    drawing a figure then raises ImportError."""
+    code = (
+        "import runpy, sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "sys.argv = ['x', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('npore_tpu_torch.scripts.plot_sankey', "
+        "run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "from npore_tpu_torch.scripts import plot_sankey as ps\n"
+        "try:\n"
+        "    ps.disc_pie(ps.VcfCounts(), '.')\n"
+        "except ImportError:\n"
+        "    print('no matplotlib')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[0].startswith("usage:") and lines[-1] == "no matplotlib"
 
 
 def test_cuda_engine_needs_a_card():
@@ -243,7 +305,11 @@ def test_dryrun_multichip_in_fresh_interpreter_loads_no_jax():
 
 @pytest.mark.parametrize("script,argv,expect", [
     ("fuzz_parity", ["5", "0", "--engine", "torch"], "parity: 5/5"),
-    ("bench_engine", ["--help"], "usage:")])
+    ("bench_engine", ["--help"], "usage:"),
+    ("genome_scale", ["--help"], "usage:"),
+    ("plot_sankey", ["--help"], "usage:"),
+    ("tag_unphased", [os.path.join(REPO, "tests", "data", "reads.bam"),
+                      os.devnull], "tagged 0 unphased reads")])
 def test_script_in_fresh_interpreter_loads_no_jax(script, argv, expect):
     """The ported fuzzer (5 cases on the plain path) and the engine bench's
     usage, in a fresh interpreter: exit 0, and neither jax nor npore_tpu
