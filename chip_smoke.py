@@ -126,7 +126,25 @@ Phases:
      must equal the bed stage's byte for byte, and ``python3 -m
      npore_tpu_torch.scripts.tag_unphased`` on tests/data/reads.bam: 10
      records, each with an HP tag;
- 22. a JSON line of kernels (launches on their path and on the new paths,
+ 22. [long reads] the realign CLI (``cli.realign.run``, --engine cuda,
+     the CLI's default --batch_reads and the production AlignConfig()) on
+     1,000 seeded reads of nanopore lengths (testing/long_reads.py: log-
+     normal, median 10 kb, sigma 0.6, 1-60 kb; make_read's noise) on a
+     seeded 5 Mbp contig with genome_scale's run density, several windows
+     each: the input (read bases, windows a read, groups and their
+     shapes, as the engine cut them), reads/s and read-kb/s of 3 timed
+     passes (median, min, max) with K4/K1/K2 launches a pass, the
+     NPORE_TIMING stage split of a fourth pass a read and a kb, the
+     device's busy and idle share and each kernel's device seconds of a
+     fifth under torch.profiler, peak device memory and pinned host bytes
+     of the first; K4 ([npinfo]), K1 and K2 at the pass's fullest group of
+     the longest windows, with their bounds and K1's resident CTAs an SM,
+     K2 equal to the plain traceback (run once); then CIGARs against the
+     C++ golden aligner, every read. Gates: 1,000 records in every
+     pass and none skipped, the SAM byte-equal across the five passes, no
+     golden fallback, K4, K1 and K2 launched once a group, every checked
+     CIGAR equal;
+ 23. a JSON line of kernels (launches on their path and on the new paths,
      error, times, and the least time the card could take for the same
      work; K4's line replaces the JAX engine's XLA scan, not a
      pallas_call), then the device line last.
@@ -198,6 +216,14 @@ GENOME_ARGV = ["--mbp", "5", "--reads", str(GENOME_READS), "--seed", "11",
                "--stages", "realign,stats,bed,std", "--engine", "cuda"]
 GENOME_TAG = "g5m_r2000_s11v2"        # its fixtures' names in the workdir
 GENOME_CHUNKS = 51                    # 5 Mbp / 100 kb + 1
+# [long reads]: nanopore read lengths (testing/long_reads.py) on a seeded
+# 5 Mbp contig with genome_scale's run density, through the realign CLI
+LR_SEED = 23
+LR_READS = 1000
+LR_CONTIG = 5_000_000
+LR_MEDIAN, LR_SIGMA = 10_000, 0.6     # bp, and sigma of the log-normal
+LR_LENGTHS = (1_000, 60_000)          # bp, its clip
+LR_PASSES = 3                         # timed passes
 
 
 def nvidia_smi() -> str:
@@ -392,8 +418,8 @@ def host_split_group(tag: str, wins, cfg, dev) -> dict:
 def profile_pass(run) -> dict:
     """Device busy share of one call of ``run`` under torch.profiler (CUDA
     activity only): the union of kernel, copy and memset intervals in the
-    trace over the pass's wall time. None where the trace holds no device
-    activity."""
+    trace over the pass's wall time (None where the trace holds no device
+    activity), and the device seconds of each kernel by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with tempfile.TemporaryDirectory() as d:
@@ -408,6 +434,12 @@ def profile_pass(run) -> dict:
             events = json.load(fh).get("traceEvents", [])
     spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    kernel_s = {}
+    for e in events:
+        if e.get("cat") == "kernel":   # by the name before its arguments
+            m = re.search(r"(\w+(<[^()]*>)?)\(", e["name"])
+            name = m.group(1) if m else e["name"]
+            kernel_s[name] = kernel_s.get(name, 0) + e.get("dur", 0) / 1e6
     busy, end = 0.0, float("-inf")
     for a, b in spans:                   # union of the intervals, in us
         if b > end:
@@ -416,7 +448,8 @@ def profile_pass(run) -> dict:
     share = busy / (wall * 1e6) if spans else None
     return {"wall_s": wall, "device_events": len(spans),
             "device_busy_s": busy / 1e6, "busy_share": share,
-            "idle_share": None if share is None else 1 - share}
+            "idle_share": None if share is None else 1 - share,
+            "kernel_s": kernel_s}
 
 
 def items_of(reads):
@@ -1116,16 +1149,36 @@ class StageLog(io.StringIO):
         return super().write(s)
 
 
+def golden_cigars(reads, sub_scores, np_scores, cfg) -> list:
+    """The CIGAR the realign CLI must write for each decoded read: the C++
+    golden aligner's, finalized, on cpu_count - 1 threads (ctypes lets go
+    of the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from npore_tpu_torch.io.cigar import finalize_cigar
+    from npore_tpu_torch.native import golden_align_native
+
+    def want(rec):
+        ref, seq, cigar = rec.aln
+        return finalize_cigar(golden_align_native(
+            ref, seq, cigar, sub_scores, np_scores, cfg), ref, seq)
+    with ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1)) as ex:
+        return list(ex.map(want, reads))
+
+
+def sam_cigars(path: str) -> dict:
+    """QNAME -> CIGAR of a SAM file's records."""
+    with open(path) as fh:
+        return {f[0]: f[5] for f in (line.split("\t") for line in fh
+                                     if not line.startswith("@"))}
+
+
 def genome_golden(workdir: str, stats: str, sub_scores, np_scores,
                   cfg) -> dict:
     """The [genome scale] run held against the golden aligners: every read
     of gs_realign.sam against the C++ golden aligner (threads: ctypes lets
     go of the GIL), and gs_std.vcf.gz against the one standardize_vcf
     --engine golden writes for the same contig (a subprocess, meanwhile)."""
-    from concurrent.futures import ThreadPoolExecutor
     from npore_tpu_torch.io.bam import open_alignment_file
-    from npore_tpu_torch.io.cigar import finalize_cigar
-    from npore_tpu_torch.native import golden_align_native
     fx = os.path.join(workdir, GENOME_TAG)
     pre = os.path.join(workdir, "gs_std_golden")
     t0 = time.perf_counter()
@@ -1136,17 +1189,9 @@ def genome_golden(workdir: str, stats: str, sub_scores, np_scores,
             + ["--contig", GENOME_STD_CONTIG],
             cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
     try:
-        with open(os.path.join(workdir, "gs_realign.sam")) as fh:
-            got = {f[0]: f[5] for f in (line.split("\t") for line in fh
-                                        if not line.startswith("@"))}
+        got = sam_cigars(os.path.join(workdir, "gs_realign.sam"))
         reads = list(open_alignment_file(fx + ".bam"))
-
-        def want(rec):
-            ref, seq, cigar = rec.aln
-            return finalize_cigar(golden_align_native(
-                ref, seq, cigar, sub_scores, np_scores, cfg), ref, seq)
-        with ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1)) as ex:
-            wants = list(ex.map(want, reads))
+        wants = golden_cigars(reads, sub_scores, np_scores, cfg)
         differ = [r.qname for r, w in zip(reads, wants)
                   if got.get(r.qname) != w]
         reads_s = time.perf_counter() - t0
@@ -1295,6 +1340,261 @@ def scripts_phase(workdir: str) -> None:
     if (res.stdout != f"tagged {len(untagged)} unphased reads\n"
             or len(untagged) != 5 or out != want):
         raise AssertionError("tag_unphased did not tag the unphased reads")
+
+
+def long_reads_input(d: str):
+    """[long reads]: the seeded contig and reads (testing/long_reads.py)
+    written as FASTA and BAM; the paths and the reads."""
+    from npore_tpu_torch.testing import long_reads as lr
+    contig, _, reads = lr.make_long_reads(LR_SEED, LR_READS, LR_CONTIG,
+                                          LR_MEDIAN, LR_SIGMA, LR_LENGTHS)
+    fasta, bam = lr.write_long_reads(d, contig, reads, seed=LR_SEED)
+    return fasta, bam, reads
+
+
+def long_reads_groups(alns, eng, batch_reads: int):
+    """Windows a read, and the groups, as the realign CLI's engine cuts
+    them: batches of ``batch_reads`` reads in the BAM's order, each
+    batch's windows sorted by rows."""
+    from npore_tpu_torch.engine.windows import build_windows
+    per_read, groups = [], []
+    for lo in range(0, len(alns), batch_reads):
+        wins = []
+        for i, (ref, seq, cig) in enumerate(alns[lo:lo + batch_reads]):
+            w = build_windows(ref, seq, cig, eng.cfg, aln_idx=i)
+            per_read.append(len(w))
+            wins += w
+        wins.sort(key=lambda w: w.b_rows)
+        groups += list(eng._groups(wins))
+    return per_read, groups
+
+
+def long_reads_golden(bam: str, sam: str, n_windows, sub_scores, np_scores,
+                      cfg) -> dict:
+    """Every [long reads] CIGAR against the C++ golden aligner's."""
+    from npore_tpu_torch.io.bam import open_alignment_file
+    t0 = time.perf_counter()
+    got = sam_cigars(sam)
+    reads = list(open_alignment_file(bam))
+    wants = golden_cigars(reads, sub_scores, np_scores, cfg)
+    differ = [r.qname for r, w in zip(reads, wants) if got.get(r.qname) != w]
+    t = {"reads_checked": len(reads),
+         "bases_checked": sum(len(r.aln[1]) for r in reads),
+         "reads_3plus_windows": sum(n >= 3 for n in n_windows),
+         "reads_equal": len(reads) - len(differ),
+         "reads_differ": differ[:10], "seconds": time.perf_counter() - t0}
+    print("[long reads] golden: " + json.dumps(t), flush=True)
+    return t
+
+
+def long_reads_phase(tmp: str, stats: str, sub_scores, np_scores, cfg,
+                     tables) -> dict:
+    """[long reads]: the realign CLI with --engine cuda on LR_READS seeded
+    reads of nanopore lengths, several windows each; see phase 22 of the
+    module docstring."""
+    import hashlib
+    import numpy as np
+    import torch
+    from npore_tpu_torch.cli import realign as cli
+    from npore_tpu_torch.engine import cuda_engine
+    from npore_tpu_torch.engine.windows import pack_group, tensor_views
+    from npore_tpu_torch.io.bam import open_alignment_file
+    from npore_tpu_torch.ops import dp_cuda, npinfo_cuda, tb_cuda
+    from npore_tpu_torch.ops.traceback import traceback as tb_plain
+    start = time.perf_counter()
+    fasta, bam, reads = long_reads_input(tmp)
+    gen_s = time.perf_counter() - start
+    n_bases = sum(len(s) for _, s, _ in reads)
+    kb = n_bases / 1e3
+    pre = os.path.join(tmp, "long_out")
+    argv = ["--bam", bam, "--ref", fasta, "--out_prefix", pre,
+            "--stats_dir", stats, "--engine", "cuda"]
+    batch_reads = cli.argparser().parse_args(argv).batch_reads
+
+    def one_pass(profiled: bool = False):
+        """One CLI run (under torch.profiler if ``profiled``): wall s,
+        launches, the SAM's hash and records, fallbacks, skips and the
+        stdout."""
+        dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
+        log = io.StringIO()
+        box = []
+
+        def run():
+            box.append(cli.run(argv))
+            torch.cuda.synchronize()
+        with contextlib.redirect_stdout(log):
+            t0 = time.perf_counter()
+            prof = profile_pass(run) if profiled else run()
+            wall = time.perf_counter() - t0
+        rl = box[0]
+        with open(pre + ".sam", "rb") as fh:
+            sam = fh.read()
+        t = {"wall_s": wall, "reads_per_s": LR_READS / wall,
+             "read_kb_per_s": kb / wall,
+             "launches": (npinfo_cuda.launches, dp_cuda.launches,
+                          tb_cuda.launches),
+             "records": sum(1 for line in sam.splitlines()
+                            if not line.startswith(b"@")),
+             "sha256": hashlib.sha256(sam).hexdigest(),
+             "golden_fallbacks": rl.bail_count, "skipped": len(rl.skipped),
+             "wait_s": rl._engine.wait_s, "engine": rl._engine,
+             "stdout": log.getvalue()}
+        if profiled:
+            t["profile"] = prof
+        return t
+
+    # timed passes; the device and pinned memory the first adds at its
+    # peak to what earlier phases still hold
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_host_memory_stats()
+    dev0 = torch.cuda.memory_allocated()
+    pinned0 = torch.cuda.host_memory_stats()["allocated_bytes.current"]
+    passes = []
+    for k in range(LR_PASSES):
+        passes.append(one_pass())
+        if k == 0:
+            host = torch.cuda.host_memory_stats()
+            memory = {
+                "device_peak_bytes": torch.cuda.max_memory_allocated() - dev0,
+                "device_before_bytes": dev0,
+                "pinned_peak_bytes": host["allocated_bytes.peak"] - pinned0,
+                "pinned_before_bytes": pinned0,
+                "pinned_after_bytes": host["allocated_bytes.current"]}
+    os.environ["NPORE_TIMING"] = "1"
+    try:
+        timed = one_pass()
+    finally:
+        del os.environ["NPORE_TIMING"]
+    profiled = one_pass(profiled=True)
+    runs = passes + [timed, profiled]
+
+    # the input as the engine cut it
+    eng = passes[0]["engine"]
+    t0 = time.perf_counter()          # a decode of the whole BAM, as the
+    alns = [r.aln for r in open_alignment_file(bam)]   # CLI's region
+    decode_s = time.perf_counter() - t0                # count makes one
+    n_windows, groups = long_reads_groups(alns, eng, batch_reads)
+    shapes = [(len(g), max(w.b_rows for w in g)) for g in groups]
+    hist = np.bincount(np.minimum(n_windows, 4), minlength=5)
+    t = {"reads": LR_READS, "read_bases": n_bases,
+         "read_bases_ref_span": sum(len(a[0]) for a in alns),
+         "longest_read": max(len(s) for _, s, _ in reads),
+         "windows_a_read": {"1": int(hist[1]), "2": int(hist[2]),
+                            "3": int(hist[3]), "4+": int(hist[4])},
+         "windows": sum(n_windows), "groups": len(groups),
+         "group_shapes": shapes, "batch_reads": batch_reads,
+         "made_s": gen_s}
+    print("[long reads] input: " + json.dumps(t), flush=True)
+    rates = sorted(p["reads_per_s"] for p in passes)
+    kbs = sorted(p["read_kb_per_s"] for p in passes)
+    thr = {"passes": LR_PASSES,
+           "reads_per_s": {"median": rates[len(rates) // 2],
+                           "min": rates[0], "max": rates[-1]},
+           "read_kb_per_s": {"median": kbs[len(kbs) // 2], "min": kbs[0],
+                             "max": kbs[-1]},
+           "wall_s": [p["wall_s"] for p in passes],
+           "device_wait_s": [p["wait_s"] for p in passes],
+           "launches_k4_k1_k2": [p["launches"] for p in passes]}
+    print("[long reads] throughput: " + json.dumps(thr), flush=True)
+    m = re.search(r"submit (\d+)us, collect-wait (\d+)us, finalize\+emit "
+                  r"(\d+)us, decode-wait (\d+)us, main-wait (\d+)us",
+                  timed["stdout"])
+    split = {"wall_s": timed["wall_s"], "bam_decode_s": decode_s}
+    if m:
+        us = dict(zip(("submit", "collect_wait", "finalize_emit",
+                       "decode_wait", "main_wait"), map(int, m.groups())))
+        split["per_read_us"] = us
+        split["per_kb_us"] = {k: v * LR_READS / kb for k, v in us.items()}
+    print("[long reads] timing: " + json.dumps(split), flush=True)
+    prof = profiled["profile"]
+    prof["kernel_s"] = dict(sorted(prof["kernel_s"].items(),
+                                   key=lambda kv: -kv[1])[:6])
+    prof["kernel_share"] = {k: v / prof["wall_s"]
+                            for k, v in prof["kernel_s"].items()}
+    print("[long reads] device: " + json.dumps(prof), flush=True)
+    memory["groups_in_flight"] = cuda_engine.GROUPS_IN_FLIGHT
+    print("[long reads] memory: " + json.dumps(memory), flush=True)
+
+    # kernels at the pass's fullest group of the longest windows
+    g = max(groups, key=lambda g: (min(w.b_rows for w in g), len(g)))
+    R = max(w.b_rows for w in g)
+    buf, layout = pack_group(g, R, cfg.max_n)
+    dev = next(iter(tables.values())).device
+    batch = tensor_views(torch.from_numpy(buf).to(dev), layout)
+    L = max(w.n_ins + w.n_del for w in g)
+    npi = npinfo_check("long reads", g, batch, cfg, dev)
+    packed = dp_cuda.band_dp(batch, tables, cfg)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grp = {"B": len(g), "R": R, "min_rows": min(w.b_rows for w in g),
+           "k1_ctas_per_sm": dp_cuda.occupancy(cfg), "sms": sms}
+    grp["k1_ms"], _ = median_ms(lambda: dp_cuda.band_dp(batch, tables, cfg))
+    grp["k1_device_ms"], _ = median_ms(
+        lambda: dp_cuda.band_dp(batch, tables, cfg), queued=True)
+    grp["k1_device_us_per_row"] = grp["k1_device_ms"] * 1e3 / R
+
+    def k2():
+        return tb_cuda.traceback(packed, batch, cfg, L)
+    grp["k2_ms"], out_k = median_ms(k2)
+    grp["k2_cold_ms"], out_c = median_ms(k2, flush=flush)
+    grp["k2_cold_device_ms"], _ = median_ms(k2, flush=flush, queued=True)
+    grp["k2_plain_ms"], out_p = median_ms(
+        lambda: tb_plain(packed, batch, cfg, L), warm=False, reps=1)
+    grp["k2_max_diff"] = max(int((o.buf.int() - out_p.buf.int()).abs().max())
+                             for o in (out_k, out_c))
+    grp["k2_equal_plain"] = (torch.equal(out_k.buf, out_p.buf)
+                             and torch.equal(out_c.buf, out_p.buf))
+    grp["k2_bails"] = int(out_k.meta[:, 1].sum())
+    grp["k1_bound"] = k1_bound(g, batch, tables, cfg, packed)
+    grp["k2_bound"] = k2_bound(g, out_k)
+    grp["k4"] = {k: npi[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "max_abs_err")}
+    print("[long reads] group: " + json.dumps(grp), flush=True)
+    del batch, packed, flush, out_k, out_c, out_p
+
+    gold = long_reads_golden(bam, pre + ".sam", n_windows, sub_scores,
+                             np_scores, cfg)
+    wall = time.perf_counter() - start
+    print(f"[long reads] phase {wall:.2f}s", flush=True)
+    fails = [what for what, ok in (
+        ("records", all(r["records"] == LR_READS for r in runs)),
+        ("skipped", all(r["skipped"] == 0 for r in runs)),
+        ("SAM equal across passes", len({r["sha256"] for r in runs}) == 1),
+        ("golden fallbacks", all(r["golden_fallbacks"] == 0 for r in runs)),
+        ("launches = groups", all(r["launches"] == (len(groups),) * 3
+                                  for r in runs)),
+        ("engine's windows and groups",
+         (eng.windows, eng.groups) == (sum(n_windows), len(groups))),
+        ("K4 = pack_group and plain", npi["equal_pack_group"]
+         and npi["equal_plain"]),
+        ("K2 = plain", grp["k2_equal_plain"] and grp["k2_bails"] == 0),
+        ("reads = golden", gold["reads_equal"] == gold["reads_checked"]
+         == LR_READS)) if not ok]
+    if fails:
+        raise AssertionError(f"[long reads] failed: {fails}")
+    return {"launches": passes[0]["launches"], "group": grp,
+            "throughput": thr, "wall_s": wall}
+
+
+def long_reads_line(longr: dict, k: str) -> dict:
+    """Kernel ``k``'s entry of the kernels line for [long reads]: its
+    launches in the first timed pass, and its times and bound at the
+    pass's fullest long group."""
+    g = longr["group"]
+    t = {"launches_per_pass": longr["launches"][("k4", "k1", "k2").index(k)],
+         "group": [g["B"], g["R"]]}
+    if k == "k4":
+        return {**t, "ms": g["k4"]["ms"], "device_ms": g["k4"]["device_ms"],
+                "bound_ms": g["k4"]["bound_ms"]}
+    if k == "k1":
+        return {**t, "ms": g["k1_ms"], "device_ms": g["k1_device_ms"],
+                "bound_ms": g["k1_bound"]["bound_ms"],
+                "ctas_per_sm": g["k1_ctas_per_sm"]}
+    return {**t, "ms": g["k2_ms"], "cold_ms": g["k2_cold_ms"],
+            "cold_device_ms": g["k2_cold_device_ms"],
+            "plain_ms": g["k2_plain_ms"],
+            "bound_ms": g["k2_bound"]["bound_ms"]}
 
 
 def main() -> int:
@@ -1650,6 +1950,12 @@ def main() -> int:
     scripts_phase(tmp.name)
     tmp.cleanup()
 
+    # --- 22. nanopore read lengths through the realign CLI ---
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_long_")
+    longr = long_reads_phase(tmp.name, stats, sub_scores, np_scores, cfg,
+                             tables)
+    tmp.cleanup()
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m == "npore_tpu" or m.startswith("npore_tpu."))
     if loaded:
@@ -1684,7 +1990,8 @@ def main() -> int:
              "dist_scale": scale_ranks["k1_launches"],
              "dryrun": dryrun[0]},
          "genome_scale": {"realign": genome["launches_realign"]["k1"],
-                          "std": genome["launches_std"]["k1"]}},
+                          "std": genome["launches_std"]["k1"]},
+         "long_reads": long_reads_line(longr, "k1")},
         {"name": "traceback", "route": "cuda",
          "source": "npore_tpu_torch/csrc/traceback.cu",
          "replaces": "npore_tpu/ops/pallas_dp.py:981",
@@ -1709,7 +2016,8 @@ def main() -> int:
              "dist_scale": scale_ranks["k2_launches"],
              "dryrun": dryrun[1]},
          "genome_scale": {"realign": genome["launches_realign"]["k2"],
-                          "std": genome["launches_std"]["k2"]}},
+                          "std": genome["launches_std"]["k2"]},
+         "long_reads": long_reads_line(longr, "k2")},
         {"name": "tier_select", "route": "cuda",
          "source": "npore_tpu_torch/csrc/tier_select.cu",
          "replaces": "scripts/probe_cond.py:50",
@@ -1736,7 +2044,8 @@ def main() -> int:
                        "group_device_ms": scale["npinfo"]["device_ms"],
                        "group_bound_ms": scale["npinfo"]["bound_ms"]},
          "genome_scale": {"realign": genome["launches_realign"]["k4"],
-                          "std": genome["launches_std"]["k4"]}},
+                          "std": genome["launches_std"]["k4"]},
+         "long_reads": long_reads_line(longr, "k4")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

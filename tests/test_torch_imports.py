@@ -73,6 +73,7 @@ MODULES = [
     "npore_tpu_torch.testing.synth",
     "npore_tpu_torch.testing.planes",
     "npore_tpu_torch.testing.chunks",
+    "npore_tpu_torch.testing.long_reads",
 ]
 # sankey.py, a verbatim copy of scripts/sankey.py, imports matplotlib when
 # it is imported; the imports of every module leave it out where
