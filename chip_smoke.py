@@ -144,14 +144,47 @@ Phases:
      pass and none skipped, the SAM byte-equal across the five passes, no
      golden fallback, K4, K1 and K2 launched once a group, every checked
      CIGAR equal;
- 23. a JSON line of kernels (launches on their path and on the new paths,
+ 23. [genome bam] a whole-genome ``minimap2 -ax map-ont --eqx`` BAM after
+     sort and calmd (testing/genome_reads.py, FULL, seed 29: chr1-chr8
+     and chrM, 23 Mbp with N gaps, chrUn_1 without reads, decoy_1 in
+     the header only; its 2,000 primary reads cut to 1,000 (GB_PRIMARY)
+     of 1-60 kb, half reverse, 70%
+     soft-clipped, per-base QUAL, MAPQ 0 on 10%, HP on 60%, 21 across a
+     short N gap, 10 without MD, 20 with M ops; 100 supplementary, 60
+     secondary with SEQ '*' and MD, 40 unmapped last): the input, then
+     the realign CLI with --engine cuda at its defaults, 3 timed passes
+     (reads/s and read-kb/s: median, min, max), then one with
+     NPORE_TIMING=1 (the stage split a kb) and one under torch.profiler
+     (the idle share and kernel device seconds): K4/K1/K2 launches,
+     windows and groups, device and pinned memory of the first; the CLI's
+     start (the FASTA, the region count through
+     the CLI's reader and through the decoder's seeking fetch, the same
+     regions); every record out against the input (FLAG, RNAME, POS,
+     MAPQ, SEQ and QUAL with the clips cut, HP) and every CIGAR against
+     the C++ golden aligner; K4,
+     K1 and K2 at a group of 16 windows that hold reference N ([npinfo]:
+     K4 = pack_group and the plain scan; K2 = the plain traceback);
+     training (--recalc_cms --recalc_exit --contigs chr8,chrM) at 1 and 2
+     ranks, equal to engine.stats.calc_confusion_matrices_bam's on those
+     contigs; the scaling script (--hosts 2, a subprocess, its
+     output in files): reads and stage seconds a rank. Gates: one record
+     for each
+     primary mapped read with MD on a FASTA contig and no other, the 10
+     MD-less reads skipped, all fields and CIGARs equal, no golden
+     fallback, the SAM byte-equal across the five passes, K4, K1 and K2
+     launched once a group, the CLI's region count = the seeking one, K4
+     and K2 equal at the N group, the .npy files of 1 and 2 ranks equal
+     (and engine.stats' counts), the merged SAM = the 1-rank SAM = the
+     passes';
+     a failure prints the input's seed;
+ 24. a JSON line of kernels (launches on their path and on the new paths,
      error, times, and the least time the card could take for the same
      work; K4's line replaces the JAX engine's XLA scan, not a
      pallas_call), then the device line last.
 
 The script imports nothing of JAX or of ``npore_tpu``: it fails if the run
 loaded ``jax``, ``npore_tpu`` or any ``npore_tpu.*`` module, and so does
-each rank that phases 16-17 start.
+each rank that phases 16-17 and 23 start.
 """
 from __future__ import annotations
 
@@ -224,6 +257,17 @@ LR_CONTIG = 5_000_000
 LR_MEDIAN, LR_SIGMA = 10_000, 0.6     # bp, and sigma of the log-normal
 LR_LENGTHS = (1_000, 60_000)          # bp, its clip
 LR_PASSES = 3                         # timed passes
+# [genome bam]: testing/genome_reads.py's FULL input (a whole-genome
+# minimap2 BAM: 9 chromosomes with N gaps and every kind of record) with
+# its 2,000 primary reads cut to GB_PRIMARY, which keeps the script well
+# inside its time limit on a slow host, through the realign CLI,
+# training and the rank split
+GB_SEED = 29
+GB_PRIMARY = 1_000
+GB_PASSES = 3                         # timed passes
+GB_TRAIN = "chr8,chrM"                # --contigs of the training runs
+GB_RANKS = 2
+GB_N_WINDOWS = 16     # windows holding reference N in the checked group
 
 
 def nvidia_smi() -> str:
@@ -1149,20 +1193,20 @@ class StageLog(io.StringIO):
         return super().write(s)
 
 
-def golden_cigars(reads, sub_scores, np_scores, cfg) -> list:
-    """The CIGAR the realign CLI must write for each decoded read: the C++
-    golden aligner's, finalized, on cpu_count - 1 threads (ctypes lets go
-    of the GIL)."""
+def golden_cigars(alns, sub_scores, np_scores, cfg) -> list:
+    """The CIGAR the realign CLI must write for each alignment (ref, seq,
+    extended CIGAR): the C++ golden aligner's, finalized, on cpu_count - 1
+    threads (ctypes lets go of the GIL)."""
     from concurrent.futures import ThreadPoolExecutor
     from npore_tpu_torch.io.cigar import finalize_cigar
     from npore_tpu_torch.native import golden_align_native
 
-    def want(rec):
-        ref, seq, cigar = rec.aln
+    def want(aln):
+        ref, seq, cigar = aln
         return finalize_cigar(golden_align_native(
             ref, seq, cigar, sub_scores, np_scores, cfg), ref, seq)
     with ThreadPoolExecutor(max(1, (os.cpu_count() or 2) - 1)) as ex:
-        return list(ex.map(want, reads))
+        return list(ex.map(want, alns))
 
 
 def sam_cigars(path: str) -> dict:
@@ -1191,7 +1235,8 @@ def genome_golden(workdir: str, stats: str, sub_scores, np_scores,
     try:
         got = sam_cigars(os.path.join(workdir, "gs_realign.sam"))
         reads = list(open_alignment_file(fx + ".bam"))
-        wants = golden_cigars(reads, sub_scores, np_scores, cfg)
+        wants = golden_cigars([r.aln for r in reads], sub_scores,
+                              np_scores, cfg)
         differ = [r.qname for r, w in zip(reads, wants)
                   if got.get(r.qname) != w]
         reads_s = time.perf_counter() - t0
@@ -1376,7 +1421,8 @@ def long_reads_golden(bam: str, sam: str, n_windows, sub_scores, np_scores,
     t0 = time.perf_counter()
     got = sam_cigars(sam)
     reads = list(open_alignment_file(bam))
-    wants = golden_cigars(reads, sub_scores, np_scores, cfg)
+    wants = golden_cigars([r.aln for r in reads], sub_scores, np_scores,
+                          cfg)
     differ = [r.qname for r, w in zip(reads, wants) if got.get(r.qname) != w]
     t = {"reads_checked": len(reads),
          "bases_checked": sum(len(r.aln[1]) for r in reads),
@@ -1387,143 +1433,22 @@ def long_reads_golden(bam: str, sam: str, n_windows, sub_scores, np_scores,
     return t
 
 
-def long_reads_phase(tmp: str, stats: str, sub_scores, np_scores, cfg,
-                     tables) -> dict:
-    """[long reads]: the realign CLI with --engine cuda on LR_READS seeded
-    reads of nanopore lengths, several windows each; see phase 22 of the
-    module docstring."""
-    import hashlib
-    import numpy as np
+def group_kernels(tag: str, g, cfg, tables):
+    """K4 ([npinfo]: = ``pack_group`` and the plain scan), K1 and K2 at the
+    group of windows ``g``: times as paid and queued, K2 warm and cold,
+    the plain traceback (run once) and K2's equality to it, bounds and
+    K1's resident CTAs an SM; printed as ``[tag] group``. Returns the
+    group's dict and [npinfo]'s."""
     import torch
-    from npore_tpu_torch.cli import realign as cli
-    from npore_tpu_torch.engine import cuda_engine
     from npore_tpu_torch.engine.windows import pack_group, tensor_views
-    from npore_tpu_torch.io.bam import open_alignment_file
-    from npore_tpu_torch.ops import dp_cuda, npinfo_cuda, tb_cuda
+    from npore_tpu_torch.ops import dp_cuda, tb_cuda
     from npore_tpu_torch.ops.traceback import traceback as tb_plain
-    start = time.perf_counter()
-    fasta, bam, reads = long_reads_input(tmp)
-    gen_s = time.perf_counter() - start
-    n_bases = sum(len(s) for _, s, _ in reads)
-    kb = n_bases / 1e3
-    pre = os.path.join(tmp, "long_out")
-    argv = ["--bam", bam, "--ref", fasta, "--out_prefix", pre,
-            "--stats_dir", stats, "--engine", "cuda"]
-    batch_reads = cli.argparser().parse_args(argv).batch_reads
-
-    def one_pass(profiled: bool = False):
-        """One CLI run (under torch.profiler if ``profiled``): wall s,
-        launches, the SAM's hash and records, fallbacks, skips and the
-        stdout."""
-        dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
-        log = io.StringIO()
-        box = []
-
-        def run():
-            box.append(cli.run(argv))
-            torch.cuda.synchronize()
-        with contextlib.redirect_stdout(log):
-            t0 = time.perf_counter()
-            prof = profile_pass(run) if profiled else run()
-            wall = time.perf_counter() - t0
-        rl = box[0]
-        with open(pre + ".sam", "rb") as fh:
-            sam = fh.read()
-        t = {"wall_s": wall, "reads_per_s": LR_READS / wall,
-             "read_kb_per_s": kb / wall,
-             "launches": (npinfo_cuda.launches, dp_cuda.launches,
-                          tb_cuda.launches),
-             "records": sum(1 for line in sam.splitlines()
-                            if not line.startswith(b"@")),
-             "sha256": hashlib.sha256(sam).hexdigest(),
-             "golden_fallbacks": rl.bail_count, "skipped": len(rl.skipped),
-             "wait_s": rl._engine.wait_s, "engine": rl._engine,
-             "stdout": log.getvalue()}
-        if profiled:
-            t["profile"] = prof
-        return t
-
-    # timed passes; the device and pinned memory the first adds at its
-    # peak to what earlier phases still hold
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.reset_peak_host_memory_stats()
-    dev0 = torch.cuda.memory_allocated()
-    pinned0 = torch.cuda.host_memory_stats()["allocated_bytes.current"]
-    passes = []
-    for k in range(LR_PASSES):
-        passes.append(one_pass())
-        if k == 0:
-            host = torch.cuda.host_memory_stats()
-            memory = {
-                "device_peak_bytes": torch.cuda.max_memory_allocated() - dev0,
-                "device_before_bytes": dev0,
-                "pinned_peak_bytes": host["allocated_bytes.peak"] - pinned0,
-                "pinned_before_bytes": pinned0,
-                "pinned_after_bytes": host["allocated_bytes.current"]}
-    os.environ["NPORE_TIMING"] = "1"
-    try:
-        timed = one_pass()
-    finally:
-        del os.environ["NPORE_TIMING"]
-    profiled = one_pass(profiled=True)
-    runs = passes + [timed, profiled]
-
-    # the input as the engine cut it
-    eng = passes[0]["engine"]
-    t0 = time.perf_counter()          # a decode of the whole BAM, as the
-    alns = [r.aln for r in open_alignment_file(bam)]   # CLI's region
-    decode_s = time.perf_counter() - t0                # count makes one
-    n_windows, groups = long_reads_groups(alns, eng, batch_reads)
-    shapes = [(len(g), max(w.b_rows for w in g)) for g in groups]
-    hist = np.bincount(np.minimum(n_windows, 4), minlength=5)
-    t = {"reads": LR_READS, "read_bases": n_bases,
-         "read_bases_ref_span": sum(len(a[0]) for a in alns),
-         "longest_read": max(len(s) for _, s, _ in reads),
-         "windows_a_read": {"1": int(hist[1]), "2": int(hist[2]),
-                            "3": int(hist[3]), "4+": int(hist[4])},
-         "windows": sum(n_windows), "groups": len(groups),
-         "group_shapes": shapes, "batch_reads": batch_reads,
-         "made_s": gen_s}
-    print("[long reads] input: " + json.dumps(t), flush=True)
-    rates = sorted(p["reads_per_s"] for p in passes)
-    kbs = sorted(p["read_kb_per_s"] for p in passes)
-    thr = {"passes": LR_PASSES,
-           "reads_per_s": {"median": rates[len(rates) // 2],
-                           "min": rates[0], "max": rates[-1]},
-           "read_kb_per_s": {"median": kbs[len(kbs) // 2], "min": kbs[0],
-                             "max": kbs[-1]},
-           "wall_s": [p["wall_s"] for p in passes],
-           "device_wait_s": [p["wait_s"] for p in passes],
-           "launches_k4_k1_k2": [p["launches"] for p in passes]}
-    print("[long reads] throughput: " + json.dumps(thr), flush=True)
-    m = re.search(r"submit (\d+)us, collect-wait (\d+)us, finalize\+emit "
-                  r"(\d+)us, decode-wait (\d+)us, main-wait (\d+)us",
-                  timed["stdout"])
-    split = {"wall_s": timed["wall_s"], "bam_decode_s": decode_s}
-    if m:
-        us = dict(zip(("submit", "collect_wait", "finalize_emit",
-                       "decode_wait", "main_wait"), map(int, m.groups())))
-        split["per_read_us"] = us
-        split["per_kb_us"] = {k: v * LR_READS / kb for k, v in us.items()}
-    print("[long reads] timing: " + json.dumps(split), flush=True)
-    prof = profiled["profile"]
-    prof["kernel_s"] = dict(sorted(prof["kernel_s"].items(),
-                                   key=lambda kv: -kv[1])[:6])
-    prof["kernel_share"] = {k: v / prof["wall_s"]
-                            for k, v in prof["kernel_s"].items()}
-    print("[long reads] device: " + json.dumps(prof), flush=True)
-    memory["groups_in_flight"] = cuda_engine.GROUPS_IN_FLIGHT
-    print("[long reads] memory: " + json.dumps(memory), flush=True)
-
-    # kernels at the pass's fullest group of the longest windows
-    g = max(groups, key=lambda g: (min(w.b_rows for w in g), len(g)))
     R = max(w.b_rows for w in g)
     buf, layout = pack_group(g, R, cfg.max_n)
     dev = next(iter(tables.values())).device
     batch = tensor_views(torch.from_numpy(buf).to(dev), layout)
     L = max(w.n_ins + w.n_del for w in g)
-    npi = npinfo_check("long reads", g, batch, cfg, dev)
+    npi = npinfo_check(tag, g, batch, cfg, dev)
     packed = dp_cuda.band_dp(batch, tables, cfg)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1550,8 +1475,186 @@ def long_reads_phase(tmp: str, stats: str, sub_scores, np_scores, cfg,
     grp["k2_bound"] = k2_bound(g, out_k)
     grp["k4"] = {k: npi[k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "max_abs_err")}
-    print("[long reads] group: " + json.dumps(grp), flush=True)
-    del batch, packed, flush, out_k, out_c, out_p
+    print(f"[{tag}] group: " + json.dumps(grp), flush=True)
+    return grp, npi
+
+
+def memory_before() -> tuple:
+    """Reset the peaks; the device and pinned host bytes held now."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_host_memory_stats()
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.host_memory_stats()["allocated_bytes.current"])
+
+
+def memory_added(before: tuple) -> dict:
+    """The device and pinned host memory added at the peak since
+    ``memory_before()`` to what was held then."""
+    import torch
+    dev0, pinned0 = before
+    host = torch.cuda.host_memory_stats()
+    return {"device_peak_bytes": torch.cuda.max_memory_allocated() - dev0,
+            "device_before_bytes": dev0,
+            "pinned_peak_bytes": host["allocated_bytes.peak"] - pinned0,
+            "pinned_before_bytes": pinned0,
+            "pinned_after_bytes": host["allocated_bytes.current"]}
+
+
+def stage_split(stdout: str, n_reads: int, kb: float) -> dict:
+    """The Realigner's NPORE_TIMING line in ``stdout``, a read and a kb of
+    ``n_reads`` reads of ``kb`` kb (empty without the line)."""
+    m = re.search(r"submit (\d+)us, collect-wait (\d+)us, finalize\+emit "
+                  r"(\d+)us, decode-wait (\d+)us, main-wait (\d+)us", stdout)
+    if not m:
+        return {}
+    us = dict(zip(("submit", "collect_wait", "finalize_emit", "decode_wait",
+                   "main_wait"), map(int, m.groups())))
+    return {"per_read_us": us,
+            "per_kb_us": {k: v * n_reads / kb for k, v in us.items()}}
+
+
+def kernel_shares(prof: dict) -> dict:
+    """``profile_pass``'s result with its six largest kernels by device
+    seconds and their share of the wall time."""
+    prof = dict(prof)
+    prof["kernel_s"] = dict(sorted(prof["kernel_s"].items(),
+                                   key=lambda kv: -kv[1])[:6])
+    prof["kernel_share"] = {k: v / prof["wall_s"]
+                            for k, v in prof["kernel_s"].items()}
+    return prof
+
+
+def realign_pass(argv, sam_path: str, n_reads: int, kb: float,
+                 profiled: bool = False) -> dict:
+    """One run of the realign CLI (``cli.realign.run(argv)``; under
+    torch.profiler if ``profiled``) with its stdout captured: wall s,
+    reads/s and read-kb/s of ``n_reads`` reads of ``kb`` kb, K4/K1/K2
+    launches, the SAM's hash and records, golden fallbacks, skips, the
+    engine and its device wait, and the stdout."""
+    import hashlib
+    import torch
+    from npore_tpu_torch.cli import realign as cli
+    from npore_tpu_torch.ops import dp_cuda, npinfo_cuda, tb_cuda
+    dp_cuda.launches = tb_cuda.launches = npinfo_cuda.launches = 0
+    log = io.StringIO()
+    box = []
+
+    def run():
+        box.append(cli.run(argv))
+        torch.cuda.synchronize()
+    with contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        prof = profile_pass(run) if profiled else run()
+        wall = time.perf_counter() - t0
+    rl = box[0]
+    with open(sam_path, "rb") as fh:
+        sam = fh.read()
+    t = {"wall_s": wall, "reads_per_s": n_reads / wall,
+         "read_kb_per_s": kb / wall,
+         "launches": (npinfo_cuda.launches, dp_cuda.launches,
+                      tb_cuda.launches),
+         "records": sum(1 for line in sam.splitlines()
+                        if not line.startswith(b"@")),
+         "sha256": hashlib.sha256(sam).hexdigest(),
+         "golden_fallbacks": rl.bail_count, "skipped": len(rl.skipped),
+         "wait_s": rl._engine.wait_s, "engine": rl._engine,
+         "stdout": log.getvalue()}
+    if profiled:
+        t["profile"] = prof
+    return t
+
+
+def throughput(passes) -> dict:
+    """reads/s and read-kb/s (median, min, max), wall and device-wait
+    seconds and K4/K1/K2 launches of ``realign_pass`` results."""
+    rates = sorted(p["reads_per_s"] for p in passes)
+    kbs = sorted(p["read_kb_per_s"] for p in passes)
+    return {"passes": len(passes),
+            "reads_per_s": {"median": rates[len(rates) // 2],
+                            "min": rates[0], "max": rates[-1]},
+            "read_kb_per_s": {"median": kbs[len(kbs) // 2], "min": kbs[0],
+                              "max": kbs[-1]},
+            "wall_s": [p["wall_s"] for p in passes],
+            "device_wait_s": [p["wait_s"] for p in passes],
+            "launches_k4_k1_k2": [p["launches"] for p in passes]}
+
+
+def timed_passes(argv, sam_path: str, n_reads: int, kb: float,
+                 n_passes: int):
+    """``n_passes`` timed ``realign_pass`` runs, then one with
+    NPORE_TIMING=1 and one under torch.profiler: (the timed runs, the
+    NPORE_TIMING run, the profiled run, the device and pinned memory the
+    first run added at its peak to what earlier phases still hold)."""
+    before = memory_before()
+    passes = []
+    for k in range(n_passes):
+        passes.append(realign_pass(argv, sam_path, n_reads, kb))
+        if k == 0:
+            memory = memory_added(before)
+    os.environ["NPORE_TIMING"] = "1"
+    try:
+        timed = realign_pass(argv, sam_path, n_reads, kb)
+    finally:
+        del os.environ["NPORE_TIMING"]
+    profiled = realign_pass(argv, sam_path, n_reads, kb, profiled=True)
+    return passes, timed, profiled, memory
+
+
+def long_reads_phase(tmp: str, stats: str, sub_scores, np_scores, cfg,
+                     tables) -> dict:
+    """[long reads]: the realign CLI with --engine cuda on LR_READS seeded
+    reads of nanopore lengths, several windows each; see phase 22 of the
+    module docstring."""
+    import numpy as np
+    import torch
+    from npore_tpu_torch.cli import realign as cli
+    from npore_tpu_torch.engine import cuda_engine
+    from npore_tpu_torch.io.bam import open_alignment_file
+    start = time.perf_counter()
+    fasta, bam, reads = long_reads_input(tmp)
+    gen_s = time.perf_counter() - start
+    n_bases = sum(len(s) for _, s, _ in reads)
+    kb = n_bases / 1e3
+    pre = os.path.join(tmp, "long_out")
+    argv = ["--bam", bam, "--ref", fasta, "--out_prefix", pre,
+            "--stats_dir", stats, "--engine", "cuda"]
+    batch_reads = cli.argparser().parse_args(argv).batch_reads
+    passes, timed, profiled, memory = timed_passes(
+        argv, pre + ".sam", LR_READS, kb, LR_PASSES)
+    runs = passes + [timed, profiled]
+
+    # the input as the engine cut it
+    eng = passes[0]["engine"]
+    t0 = time.perf_counter()          # a decode of the whole BAM, as the
+    alns = [r.aln for r in open_alignment_file(bam)]   # CLI's region
+    decode_s = time.perf_counter() - t0                # count makes one
+    n_windows, groups = long_reads_groups(alns, eng, batch_reads)
+    shapes = [(len(g), max(w.b_rows for w in g)) for g in groups]
+    hist = np.bincount(np.minimum(n_windows, 4), minlength=5)
+    t = {"reads": LR_READS, "read_bases": n_bases,
+         "read_bases_ref_span": sum(len(a[0]) for a in alns),
+         "longest_read": max(len(s) for _, s, _ in reads),
+         "windows_a_read": {"1": int(hist[1]), "2": int(hist[2]),
+                            "3": int(hist[3]), "4+": int(hist[4])},
+         "windows": sum(n_windows), "groups": len(groups),
+         "group_shapes": shapes, "batch_reads": batch_reads,
+         "made_s": gen_s}
+    print("[long reads] input: " + json.dumps(t), flush=True)
+    thr = throughput(passes)
+    print("[long reads] throughput: " + json.dumps(thr), flush=True)
+    split = {"wall_s": timed["wall_s"], "bam_decode_s": decode_s,
+             **stage_split(timed["stdout"], LR_READS, kb)}
+    print("[long reads] timing: " + json.dumps(split), flush=True)
+    print("[long reads] device: " + json.dumps(
+        kernel_shares(profiled["profile"])), flush=True)
+    memory["groups_in_flight"] = cuda_engine.GROUPS_IN_FLIGHT
+    print("[long reads] memory: " + json.dumps(memory), flush=True)
+
+    # kernels at the pass's fullest group of the longest windows
+    g = max(groups, key=lambda g: (min(w.b_rows for w in g), len(g)))
+    grp, npi = group_kernels("long reads", g, cfg, tables)
 
     gold = long_reads_golden(bam, pre + ".sam", n_windows, sub_scores,
                              np_scores, cfg)
@@ -1573,6 +1676,277 @@ def long_reads_phase(tmp: str, stats: str, sub_scores, np_scores, cfg,
          == LR_READS)) if not ok]
     if fails:
         raise AssertionError(f"[long reads] failed: {fails}")
+    return {"launches": passes[0]["launches"], "group": grp,
+            "throughput": thr, "wall_s": wall}
+
+
+def run_logged(cmd, prefix: str, timeout: float = 900) -> int:
+    """Run ``cmd`` from the repo root with its stdout and stderr in
+    ``{prefix}.out`` and ``{prefix}.err``, in a process group of its own
+    whose every process is killed when it ends or outlasts ``timeout``;
+    its exit code. On a failure it prints the tail of both files."""
+    import signal
+    with open(prefix + ".out", "w") as out, open(prefix + ".err", "w") as err:
+        p = subprocess.Popen(cmd, cwd=REPO, stdout=out, stderr=err,
+                             process_group=0)
+        try:
+            rc = p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = 124
+        finally:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)    # ranks it left behind
+            except ProcessLookupError:
+                pass
+            p.wait()
+    if rc != 0:
+        for ext in (".out", ".err"):
+            with open(prefix + ext) as fh:
+                print(f"[{os.path.basename(prefix)}{ext}] exit {rc}, tail:\n"
+                      + fh.read()[-4000:], flush=True)
+    return rc
+
+
+def genome_bam_phase(tmp: str, stats: str, sub_scores, np_scores, cfg,
+                     tables) -> dict:
+    """[genome bam]: see phase 23 of the module docstring. A failure
+    prints the input's seed before it is raised."""
+    try:
+        return _genome_bam(tmp, stats, sub_scores, np_scores, cfg, tables)
+    except BaseException:
+        print(f"[genome bam] failed on testing/genome_reads.py's FULL "
+              f"input of seed {GB_SEED}, {GB_PRIMARY} primary reads",
+              flush=True)
+        raise
+
+
+def _genome_bam(tmp, stats, sub_scores, np_scores, cfg, tables) -> dict:
+    import dataclasses
+    from collections import Counter
+    import numpy as np
+    from npore_tpu_torch.config import RealignConfig
+    from npore_tpu_torch.constants import bases_to_int
+    from npore_tpu_torch.engine.regions import get_bam_regions
+    from npore_tpu_torch.engine.windows import build_windows
+    from npore_tpu_torch.cli import realign as cli
+    from npore_tpu_torch.engine.stats import calc_confusion_matrices_bam
+    from npore_tpu_torch.io.bam_native import NativeBamReader
+    from npore_tpu_torch.io.fasta import FastaFile
+    from npore_tpu_torch.parallel.distributed import shard_regions
+    from npore_tpu_torch.scripts import multihost_scaling as mh
+    from npore_tpu_torch.testing import genome_reads as gr
+    start = time.perf_counter()
+    layout = dataclasses.replace(gr.FULL, primary=GB_PRIMARY)
+    genome = gr.make_genome_reads(GB_SEED, layout)
+    fasta, bam = gr.write_genome_reads(tmp, genome)
+    want = gr.expected_output(genome)
+    made_s = time.perf_counter() - start
+    kb = sum(len(r.aligned_seq) for r in want) / 1e3
+    kinds_in = gr.counts(genome)
+    no_md = sum(r.kind == gr.NO_MD and r.rname in genome.fasta
+                for r in genome.reads)
+    primary = [r for r in genome.reads if r.flag & 0x904 == 0]
+    t = {"seed": GB_SEED, "primary": GB_PRIMARY,
+         "records": len(genome.reads),
+         "records_by_kind": kinds_in,
+         "contigs": {n: len(s) for n, s in genome.fasta.items()},
+         "header_only": [n for n, _ in genome.header
+                         if n not in genome.fasta],
+         "n_gaps": {n: g for n, g in genome.gaps.items() if g},
+         "reads_out_expected": len(want), "read_kb_out_expected": kb,
+         "reverse": sum(r.flag & 16 != 0 for r in primary),
+         "soft_clipped": sum(r.clips != (0, 0) for r in primary),
+         "clipped_bases": sum(sum(r.clips) for r in primary),
+         "mapq0": sum(r.mapq == 0 for r in primary),
+         "hp": sum("HP" in r.tags for r in primary),
+         "spanning_n": sum(r.spans_gap for r in want),
+         "longest": max(r.span for r in want),
+         "bam_bytes": os.path.getsize(bam), "made_s": made_s}
+    print("[genome bam] input: " + json.dumps(t), flush=True)
+
+    # the realign CLI at its defaults: GB_PASSES timed passes, then one
+    # with NPORE_TIMING=1 and one under the profiler
+    pre = os.path.join(tmp, "gb_out")
+    argv = ["--bam", bam, "--ref", fasta, "--out_prefix", pre,
+            "--stats_dir", stats, "--engine", "cuda"]
+    passes, timed, profiled, memory = timed_passes(
+        argv, pre + ".sam", len(want), kb, GB_PASSES)
+    runs = passes + [timed, profiled]
+    thr = {**throughput(passes),
+           "windows_groups": [(p["engine"].windows, p["engine"].groups)
+                              for p in runs],
+           "skipped": [p["skipped"] for p in runs],
+           "golden_fallbacks": [p["golden_fallbacks"] for p in runs]}
+    print("[genome bam] throughput: " + json.dumps(thr), flush=True)
+    print("[genome bam] timing: " + json.dumps(
+        {"wall_s": timed["wall_s"],
+         **stage_split(timed["stdout"], len(want), kb)}), flush=True)
+    print("[genome bam] device: " + json.dumps(
+        kernel_shares(profiled["profile"])), flush=True)
+    print("[genome bam] memory: " + json.dumps(memory), flush=True)
+
+    # the CLI's fixed start on this genome: the FASTA, and the region
+    # count, a decode of the whole BAM without the prep, through the
+    # CLI's reader and through the decoder's own fetch, which seeks to
+    # each contig (and rescans the file once it took it for unsorted)
+    t0 = time.perf_counter()
+    ref_fa = FastaFile(fasta)
+    start_s = {"fasta_s": time.perf_counter() - t0}
+    rcfg = RealignConfig(bam=bam, ref=fasta)
+    counted = {}
+    for name, reader in (("cli", cli.open_bam(bam, prep=False)),
+                         ("seeking", NativeBamReader(bam, prep=False))):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # decoy_1's warning
+            counted[name] = get_bam_regions(rcfg, ref_fa, reader)
+        start_s[f"region_count_{name}_s"] = time.perf_counter() - t0
+        reader.close()
+    regions = counted["cli"]
+    start_s["regions"] = len(regions)
+    print("[genome bam] start: " + json.dumps(start_s), flush=True)
+
+    # the records out against the input's, field by field
+    with open(pre + ".sam") as fh:
+        out = [line.rstrip("\n").split("\t") for line in fh
+               if not line.startswith("@")]
+    by_name = {f[0]: f for f in out}
+    kind_of = {r.qname: r.kind for r in primary}
+    t0 = time.perf_counter()
+    gold = golden_cigars(
+        [(bases_to_int(genome.fasta[r.rname][r.pos:r.pos + r.span]),
+          bases_to_int(r.aligned_seq), r.cli_cigar) for r in want],
+        sub_scores, np_scores, cfg)
+    gold_s = time.perf_counter() - t0
+    fields = ("flag", "rname", "pos", "mapq", "cigar", "seq", "qual", "tags")
+    differ = {k: [] for k in fields}
+    for r, g in zip(want, gold):
+        f = by_name.get(r.qname)
+        if f is None:
+            continue
+        hp = r.tags["HP"][1] if "HP" in r.tags else 0
+        for k, got, exp in (
+                ("flag", f[1], str(r.flag)), ("rname", f[2], r.rname),
+                ("pos", f[3], str(r.pos + 1)), ("mapq", f[4], str(r.mapq)),
+                ("cigar", f[5], g), ("seq", f[9], r.aligned_seq.upper()),
+                ("qual", f[10], r.aligned_qual),
+                ("tags", f[11:], [f"HP:i:{hp}"])):
+            if got != exp:
+                differ[k].append(r.qname)
+    recs = {"records_out": len(out),
+            "records_out_by_kind": dict(Counter(
+                kind_of.get(f[0], "none") for f in out)),
+            "records_out_not_primary": sum(int(f[1]) & 0x904 != 0
+                                           for f in out),
+            "missing": sorted({r.qname for r in want} - set(by_name))[:10],
+            "unexpected": sorted(set(by_name) - {r.qname for r in want})[:10],
+            "skipped_expected": no_md,
+            "differ": {k: (len(v), v[:5]) for k, v in differ.items()},
+            "golden_s": gold_s}
+    print("[genome bam] records: " + json.dumps(recs), flush=True)
+
+    # K4, K1 and K2 at a group of windows holding reference N
+    eng = passes[0]["engine"]
+    wins = []
+    for i, r in enumerate(x for x in want if x.spans_gap):
+        wins += build_windows(
+            bases_to_int(genome.fasta[r.rname][r.pos:r.pos + r.span]),
+            bases_to_int(r.aligned_seq), r.cli_cigar, eng.cfg, aln_idx=i)
+    n_wins = sorted((w for w in wins if (w.ref[:w.n_del] == 0).any()),
+                    key=lambda w: w.b_rows)[:GB_N_WINDOWS]
+    grp, npi = group_kernels("genome bam", n_wins, cfg, tables)
+
+    # training on two contigs, 1 rank and GB_RANKS ranks
+    cms, train = {}, {}
+    for n in (1, GB_RANKS):
+        d = os.path.join(tmp, f"gb_stats{n}")
+        row = mh.run_ranks(n, [
+            "--bam", bam, "--ref", fasta, "--engine", "cuda",
+            "--stats_dir", d, "--out_prefix", os.path.join(tmp, f"gb_cm{n}"),
+            "--recalc_cms", "--recalc_exit", "--contigs", GB_TRAIN], tmp,
+            f"gb_cm{n}")
+        check_ranks(row, "[genome bam] training")
+        cms[n] = [np.load(os.path.join(d, f"{k}_cm.npy"))
+                  for k in ("subs", "nps", "inss", "dels")]
+        train[n] = row["wall_s"]
+    # the CLI's counts against engine.stats' own function on the same
+    # contigs
+    trn = {"contigs": GB_TRAIN, "wall_s": train,
+           "equal": all(np.array_equal(a, b) for a, b in
+                        zip(cms[1], cms[GB_RANKS])),
+           "total": int(sum(int(a.sum()) for a in cms[GB_RANKS])),
+           "subs_total": int(cms[GB_RANKS][0].sum())}
+    on = {c: (c, 0, n - 1) for c, n in layout.contigs}
+    copy_counts = calc_confusion_matrices_bam(
+        bam, ref_fa, [on[c] for c in GB_TRAIN.split(",")], rcfg)
+    trn["equal_stats_copy"] = all(np.array_equal(a, b)
+                                  for a, b in zip(cms[1], copy_counts))
+    print("[genome bam] training: " + json.dumps(trn), flush=True)
+    del ref_fa
+
+    # the rank split through the scaling script, on the one card
+    wd = os.path.join(tmp, "gb_ranks")
+    os.makedirs(wd)
+    t0 = time.perf_counter()
+    rc = run_logged([sys.executable, "-m", mh.MODULE, "--hosts",
+                     str(GB_RANKS), "--engine", "cuda", "--bam", bam,
+                     "--ref", fasta, "--stats_dir", stats, "--workdir", wd],
+                    os.path.join(tmp, "gb_ranks"))
+    if rc != 0:
+        raise AssertionError(f"[genome bam] the scaling script exited {rc}")
+    with open(os.path.join(tmp, "gb_ranks.out")) as fh:
+        rows = [json.loads(line) for line in fh if line.startswith("{")]
+    one = mh.records(os.path.join(wd, "cuda_r0_n1.sam"))
+    rk = {"rc": rc, "wall_s": time.perf_counter() - t0,
+          "regions": len(regions),
+          "shards": [[c for c, _, _ in shard_regions(regions, GB_RANKS, h)]
+                     for h in range(GB_RANKS)],
+          "runs": [{"hosts": row["hosts"], "wall_s": row["wall_s"],
+                    "seconds": row["seconds"], "reads": row["reads"],
+                    "records_match_1host": row["records_match_1host"],
+                    "efficiency": row["efficiency"],
+                    "ranks": [{k: x[k] for k in ("reads", "seconds", "bails",
+                                                 "k1_launches",
+                                                 "peak_device_bytes")}
+                              for x in row["ranks"]]} for row in rows],
+          "one_rank_equals_passes": one == mh.records(pre + ".sam")}
+    print("[genome bam] ranks: " + json.dumps(rk), flush=True)
+    for row in rows:
+        check_ranks(row, "[genome bam] ranks")
+
+    wall = time.perf_counter() - start
+    print(f"[genome bam] phase {wall:.2f}s", flush=True)
+    n_groups = [p["engine"].groups for p in runs]
+    fails = [what for what, ok in (
+        ("records out", len(out) == len(by_name) == len(want)
+         and not recs["missing"] and not recs["unexpected"]),
+        ("no supplementary, secondary or unmapped record out",
+         recs["records_out_not_primary"] == 0),
+        ("skipped = the MD-less reads",
+         all(p["skipped"] == no_md for p in runs)),
+        ("fields carried and CIGARs = golden",
+         not any(differ.values())),
+        ("golden fallbacks", all(p["golden_fallbacks"] == 0
+                                 for p in runs)),
+        ("SAM equal across passes", len({p["sha256"] for p in runs}) == 1),
+        ("launches = groups", all(
+            p["launches"] == (g,) * 3 and g > 0
+            for p, g in zip(runs, n_groups))),
+        ("regions: chromosomes with reads on the FASTA",
+         [c for c, _, _ in regions] == [c for c, _ in layout.contigs]),
+        ("a group holding reference N", len(n_wins) > 0),
+        ("K4 = pack_group and plain there", npi["equal_pack_group"]
+         and npi["equal_plain"]),
+        ("K2 = plain there", grp["k2_equal_plain"] and grp["k2_bails"] == 0),
+        ("training: 1 rank = 2 ranks = engine.stats'",
+         trn["equal"] and trn["subs_total"] and trn["equal_stats_copy"]),
+        ("region count: the CLI's = the seeking decoder's",
+         counted["cli"] == counted["seeking"]),
+        ("ranks: 1, then 2", [r["hosts"] for r in rows] == [1, GB_RANKS]),
+        ("ranks: merged = 1 rank = the passes' SAM",
+         all(r["records_match_1host"] and r["reads"] == len(want)
+             for r in rows) and rk["one_rank_equals_passes"])) if not ok]
+    if fails:
+        raise AssertionError(f"[genome bam] failed: {fails}")
     return {"launches": passes[0]["launches"], "group": grp,
             "throughput": thr, "wall_s": wall}
 
@@ -1956,6 +2330,12 @@ def main() -> int:
                              tables)
     tmp.cleanup()
 
+    # --- 23. a whole-genome minimap2 BAM through the realign CLI ---
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_genome_bam_")
+    gbam = genome_bam_phase(tmp.name, stats, sub_scores, np_scores, cfg,
+                            tables)
+    tmp.cleanup()
+
     loaded = sorted(m for m in sys.modules if m == "jax"
                     or m == "npore_tpu" or m.startswith("npore_tpu."))
     if loaded:
@@ -1991,7 +2371,8 @@ def main() -> int:
              "dryrun": dryrun[0]},
          "genome_scale": {"realign": genome["launches_realign"]["k1"],
                           "std": genome["launches_std"]["k1"]},
-         "long_reads": long_reads_line(longr, "k1")},
+         "long_reads": long_reads_line(longr, "k1"),
+         "genome_bam": long_reads_line(gbam, "k1")},
         {"name": "traceback", "route": "cuda",
          "source": "npore_tpu_torch/csrc/traceback.cu",
          "replaces": "npore_tpu/ops/pallas_dp.py:981",
@@ -2017,7 +2398,8 @@ def main() -> int:
              "dryrun": dryrun[1]},
          "genome_scale": {"realign": genome["launches_realign"]["k2"],
                           "std": genome["launches_std"]["k2"]},
-         "long_reads": long_reads_line(longr, "k2")},
+         "long_reads": long_reads_line(longr, "k2"),
+         "genome_bam": long_reads_line(gbam, "k2")},
         {"name": "tier_select", "route": "cuda",
          "source": "npore_tpu_torch/csrc/tier_select.cu",
          "replaces": "scripts/probe_cond.py:50",
@@ -2045,7 +2427,8 @@ def main() -> int:
                        "group_bound_ms": scale["npinfo"]["bound_ms"]},
          "genome_scale": {"realign": genome["launches_realign"]["k4"],
                           "std": genome["launches_std"]["k4"]},
-         "long_reads": long_reads_line(longr, "k4")},
+         "long_reads": long_reads_line(longr, "k4"),
+         "genome_bam": long_reads_line(gbam, "k4")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,9 +19,11 @@ from typing import Optional
 
 from .. import __version__
 from ..config import AlignConfig, RealignConfig
+from ..engine.bam_stream import SortedBamReader, confusion_counts, file_order
 from ..engine.realigner import ENGINES, Realigner
 from ..engine.regions import get_bam_regions
 from ..io.bam import open_alignment_file
+from ..io.bam_native import native_available
 from ..io.fasta import FastaFile
 from ..io.sam import make_header
 from ..model.scores import (calc_score_matrices, load_confusion_matrices,
@@ -82,6 +84,28 @@ def config_from_args(args) -> RealignConfig:
         batch_reads=args.batch_reads, engine=args.engine)
 
 
+# the records get_read_data drops: secondary, supplementary, unmapped
+SKIP_FLAGS = 0x100 | 0x800 | 0x4
+
+
+def open_bam(path: str, prep: bool = True, skip_flags: int = 0):
+    """A BAM through ``engine.bam_stream.SortedBamReader`` (its contigs in
+    one pass; the decoder drops ``skip_flags`` records before it builds
+    them), anything else (or a BAM without the C++ library) as
+    ``open_alignment_file`` opens it.
+
+    The reads come with ``skip_flags=SKIP_FLAGS``: the decoder preps
+    every record it keeps, rebuilding its reference from the MD tag over
+    its query, and a record with SEQ ``*`` and an MD tag (a secondary
+    alignment from ``minimap2 --MD``) has no query: ``md_to_ref``
+    (native/bamio.cpp:379) reads past the empty buffer, through a null
+    pointer where the record is the first of a batch (SIGSEGV). The
+    region count needs no prep at all."""
+    if path.endswith(".bam") and native_available():
+        return SortedBamReader(path, prep, skip_flags)
+    return open_alignment_file(path, prep)
+
+
 def get_read_data(bam, regions, max_reads: int = 0):
     """Stream primary mapped reads in the selected regions
     (reference: src/bam.pyx:18-47)."""
@@ -121,7 +145,7 @@ def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
 
     print("> selecting BAM regions")
     ref_fa = FastaFile(cfg.ref)
-    bam = open_alignment_file(cfg.bam)
+    bam = open_bam(cfg.bam, prep=False)     # the count needs no prep
     regions = get_bam_regions(cfg, ref_fa, bam)
     stripe = False
     if num_hosts > 1:
@@ -141,15 +165,14 @@ def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
                    for n in ("subs", "nps", "inss", "dels"))
     if cfg.recalc_cms or not have_all:
         print("> calculating confusion matrices")
-        from ..engine.stats import calc_confusion_matrices_bam
         # stats must shard by REGION even in read-stripe mode: each count
         # contributes once globally or the allreduce multiplies every
         # count by num_hosts, which shifts the eps-smoothed score
         # matrices (model/scores.py) vs a single-host run
         stat_regions = (shard_regions(regions, num_hosts, host_id)
                         if stripe else regions)
-        subs, nps, inss, dels = calc_confusion_matrices_bam(
-            bam_path=cfg.bam, ref_fa=ref_fa, regions=stat_regions, cfg=cfg)
+        subs, nps, inss, dels = confusion_counts(cfg.bam, ref_fa,
+                                                 stat_regions, cfg)
         if num_hosts > 1:      # all-reduce each host's region-shard counts
             subs, nps, inss, dels = allreduce_counts([subs, nps, inss, dels])
         if host_id == 0:
@@ -195,7 +218,12 @@ def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
     with open(out_path, "w") as fh:
         for line in header:
             fh.write(line + "\n")
-        reads = get_read_data(bam, regions, cfg.max_reads)
+        if num_hosts > 1 and not stripe:
+            # a shard's regions in the file's order, so that the reader
+            # reads on (rank 0's merge sorts the records anyway)
+            regions = file_order(bam.references, regions)
+        reads = get_read_data(open_bam(cfg.bam, skip_flags=SKIP_FLAGS),
+                              regions, cfg.max_reads)
         if stripe:
             reads = stripe_reads(reads, num_hosts, host_id)
         for rec in realigner.realign_records(reads, cfg.batch_reads):

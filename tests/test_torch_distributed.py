@@ -250,3 +250,40 @@ def test_two_rank_recalc_equals_jax_counts(tmp_path, data_dir, stats_dir):
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
     assert want[0].sum() > 0
+
+
+def test_scaling_script_sweeps_engines_with_max_reads_and_pinned_cores(
+        tmp_path, data_dir, stats_dir, capsys):
+    """``--engines``, ``--max_reads`` and ``--pin_cores``, the JAX
+    script's flags (scripts/multihost_scaling.py): each engine's 1-rank
+    and 2-rank runs of the first 4 reads, each rank on its own core
+    (taskset), the merged SAM = the 1-rank SAM."""
+    rc = mh.main(["--hosts", "2", "--engines", "torch", "--max_reads", "4",
+                  "--pin_cores", "1", "--bam",
+                  os.path.join(data_dir, "reads.bam"), "--stats_dir",
+                  stats_dir, "--workdir", str(tmp_path)])
+    assert rc == 0
+    rows = [json.loads(l) for l in capsys.readouterr().out.splitlines()
+            if l.startswith("{")]
+    assert [(r["engine"], r["hosts"], r["reads"]) for r in rows] == [
+        ("torch", 1, 4), ("torch", 2, 4)]
+    assert all(r["records_match_1host"] for r in rows)
+    assert [x["reads"] for x in rows[1]["ranks"]] == [2, 2]
+    with open(tmp_path / "torch_r0_n2.rank1.log") as fh:
+        assert "runtime" in fh.read()
+
+
+@pytest.mark.parametrize("hosts, pin, ok", [(2, 1, True), (3, 0, True),
+                                            (2, 10 ** 6, False)])
+def test_pinned_ranks(hosts, pin, ok):
+    """Rank h of n runs on cores [h * pin, (h + 1) * pin); more cores
+    than the machine has stop the script before any rank starts."""
+    cmd = ["python", "x"]
+    if not ok:
+        with pytest.raises(SystemExit, match="exceeds"):
+            mh.check_pin(hosts, pin)
+        return
+    got = [mh.pinned(cmd, h, hosts, pin) for h in range(hosts)]
+    assert got == ([cmd] * hosts if not pin else
+                   [["taskset", "-c", f"{h * pin}-{h * pin + pin - 1}"]
+                    + cmd for h in range(hosts)])

@@ -52,6 +52,7 @@ MODULES = [
     "npore_tpu_torch.engine.windows",
     "npore_tpu_torch.engine.cuda_engine",
     "npore_tpu_torch.engine.realigner",
+    "npore_tpu_torch.engine.bam_stream",
     "npore_tpu_torch.cli.realign",
     "npore_tpu_torch.cli.standardize_vcf",
     "npore_tpu_torch.cli.bed",
@@ -74,6 +75,7 @@ MODULES = [
     "npore_tpu_torch.testing.planes",
     "npore_tpu_torch.testing.chunks",
     "npore_tpu_torch.testing.long_reads",
+    "npore_tpu_torch.testing.genome_reads",
 ]
 # sankey.py, a verbatim copy of scripts/sankey.py, imports matplotlib when
 # it is imported; the imports of every module leave it out where
