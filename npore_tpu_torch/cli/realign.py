@@ -8,16 +8,26 @@ With ``--num_hosts`` N > 1, N processes (one a rank) realign region
 shards, or read stripes when there are fewer regions than ranks, each into
 ``{out_prefix}.h{I}.sam``; rank 0 merges them into ``{out_prefix}.sam``.
 The ranks talk over gloo (``parallel/distributed.py``).
+
+With ``NPORE_TIMING=1`` the tracer (``tracing``) records the call's
+spans: ``realign.call`` and, under it, ``realign.fasta``,
+``realign.region_count`` (one ``regions.count`` a contig),
+``realign.tables``, ``realign.header`` and ``realign.stage`` (the printed
+``runtime:``), which holds ``realign.engine_init``, one
+``realign.sam_write`` a batch and the pipeline's spans
+(``engine/realigner.py``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
-from time import perf_counter
+import time
+from time import perf_counter, perf_counter_ns
 from typing import Optional
 
-from .. import __version__
+from .. import __version__, tracing
 from ..config import AlignConfig, RealignConfig
 from ..engine.bam_stream import SortedBamReader, confusion_counts, file_order
 from ..engine.realigner import ENGINES, Realigner
@@ -58,8 +68,12 @@ def argparser() -> argparse.ArgumentParser:
                         "the golden spec (new; no reference equivalent).")
     p.add_argument("--batch_reads", type=int, default=512)
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="Write a torch.profiler trace of the realignment "
-                        "stage to this directory (new; view with Perfetto).")
+                   help="Write a chrome trace of the call to "
+                        "DIR/realign_trace.json: the card's kernels and "
+                        "copies (torch.profiler, CUDA activity only; "
+                        "--engine cuda) and, with NPORE_TIMING=1, the "
+                        "program's spans, one row a thread (new; open in "
+                        "https://ui.perfetto.dev or chrome://tracing).")
     p.add_argument("--num_hosts", type=int, default=1,
                    help="Multi-host SPMD: total participating ranks "
                         "(new; every rank runs this CLI with the same "
@@ -131,22 +145,56 @@ def run(argv=None) -> Optional[Realigner]:
     1 this process is one of N ranks: it joins the process group, and
     leaves it when the run ends."""
     args = argparser().parse_args(argv)
+    tracing.set_from_env()
     host_id, num_hosts = init_distributed(args.coordinator, args.num_hosts,
                                           args.host_id)
     try:
-        return _run(args, host_id, num_hosts)
+        with _profiled(args.profile_dir, args.engine), \
+                tracing.span("realign.call"):
+            return _run(args, host_id, num_hosts)
     finally:
         if num_hosts > 1:
             shutdown()
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], engine: str):
+    """With ``profile_dir``, a chrome trace of the body in
+    ``profile_dir/realign_trace.json``: the card's activity under
+    torch.profiler (``--engine cuda``), and the tracer's spans on the
+    profiler's timeline."""
+    if not profile_dir:
+        yield
+        return
+    prof = None
+    if engine == "cuda":
+        import torch
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+    clock = (time.time_ns(), perf_counter_ns())
+    try:
+        yield
+    finally:
+        if prof is not None:
+            prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    trace = os.path.join(profile_dir, "realign_trace.json")
+    if prof is not None:
+        prof.export_chrome_trace(trace)
+    tracing.add_to_chrome_trace(trace, clock)
+    print(f"    profiler trace written to {trace}")
 
 
 def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
     cfg = config_from_args(args)
 
     print("> selecting BAM regions")
-    ref_fa = FastaFile(cfg.ref)
-    bam = open_bam(cfg.bam, prep=False)     # the count needs no prep
-    regions = get_bam_regions(cfg, ref_fa, bam)
+    with tracing.span("realign.fasta"):
+        ref_fa = FastaFile(cfg.ref)
+    with tracing.span("realign.region_count"):
+        bam = open_bam(cfg.bam, prep=False)     # the count needs no prep
+        regions = get_bam_regions(cfg, ref_fa, bam)
     stripe = False
     if num_hosts > 1:
         if len(regions) >= num_hosts:
@@ -160,6 +208,7 @@ def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
             print(f"    host {host_id}/{num_hosts}: read-stripe mode "
                   f"({len(regions)} regions < {num_hosts} hosts)")
 
+    tables_t0 = perf_counter_ns()
     # auto-recalculate stats when any matrix is missing (src/realign.py:124-128)
     have_all = all(os.path.isfile(os.path.join(cfg.stats_dir, f"{n}_cm.npy"))
                    for n in ("subs", "nps", "inss", "dels"))
@@ -186,6 +235,7 @@ def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
     print("> calculating score matrices")
     sub_scores, np_scores, _, _ = calc_score_matrices(
         subs, nps, inss, dels, cfg.align.max_n, cfg.align.max_l)
+    tracing.record("realign.tables", tables_t0, perf_counter_ns())
 
     if cfg.plot:
         from ..model.plots import (plot_confusion_matrices,
@@ -197,58 +247,51 @@ def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
         return None
 
     print("> creating output SAM")
-    header = make_header(bam.references, bam.lengths, __version__)
-    out_path = host_out_path(cfg.out_prefix, host_id, num_hosts)
-    d = os.path.dirname(out_path)
-    if d:
-        os.makedirs(d, exist_ok=True)
+    with tracing.span("realign.header"):
+        header = make_header(bam.references, bam.lengths, __version__)
+        out_path = host_out_path(cfg.out_prefix, host_id, num_hosts)
+        d = os.path.dirname(out_path)
+        if d:
+            os.makedirs(d, exist_ok=True)
 
     print("> computing batched read realignments")
-    start = perf_counter()
-    realigner = Realigner(sub_scores, np_scores, cfg.align, engine=cfg.engine)
-    prof = None
-    if args.profile_dir:
-        import torch
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if realigner.engine == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=acts)
-        prof.start()
-    n = 0
-    with open(out_path, "w") as fh:
-        for line in header:
-            fh.write(line + "\n")
-        if num_hosts > 1 and not stripe:
-            # a shard's regions in the file's order, so that the reader
-            # reads on (rank 0's merge sorts the records anyway)
-            regions = file_order(bam.references, regions)
-        reads = get_read_data(open_bam(cfg.bam, skip_flags=SKIP_FLAGS),
-                              regions, cfg.max_reads)
-        if stripe:
-            reads = stripe_reads(reads, num_hosts, host_id)
-        for rec in realigner.realign_records(reads, cfg.batch_reads):
-            fh.write(rec.to_line() + "\n")
-            n += 1
-            if n % 1000 == 0:
-                print(f"\r    {n} reads realigned "
-                      f"({n/(perf_counter()-start):.0f} reads/s)",
-                      end="", flush=True)
-    if prof is not None:
-        prof.stop()
-        os.makedirs(args.profile_dir, exist_ok=True)
-        trace = os.path.join(args.profile_dir, "realign_trace.json")
-        prof.export_chrome_trace(trace)
-        print(f"    profiler trace written to {trace}")
-    for e in realigner.errors:
-        print(f"WARNING: {e}")
-    for s in realigner.skipped:
-        print(f"WARNING: {s}")
-    if realigner.skipped:
-        print(f"    {len(realigner.skipped)} reads skipped (malformed)")
-    if realigner.bail_count:
-        print(f"    {realigner.bail_count} alignments used the golden "
-              f"fallback")
-    print(f"\r    {n} reads realigned; runtime: {perf_counter()-start:.2f}s")
+    with tracing.span("realign.stage"):
+        start = perf_counter()
+        with tracing.span("realign.engine_init"):
+            realigner = Realigner(sub_scores, np_scores, cfg.align,
+                                  engine=cfg.engine)
+        n = 0
+        with open(out_path, "w") as fh:
+            for line in header:
+                fh.write(line + "\n")
+            if num_hosts > 1 and not stripe:
+                # a shard's regions in the file's order, so that the reader
+                # reads on (rank 0's merge sorts the records anyway)
+                regions = file_order(bam.references, regions)
+            reads = get_read_data(open_bam(cfg.bam, skip_flags=SKIP_FLAGS),
+                                  regions, cfg.max_reads)
+            if stripe:
+                reads = stripe_reads(reads, num_hosts, host_id)
+            for b, recs in realigner.realign_batches(reads, cfg.batch_reads):
+                with tracing.span("realign.sam_write", batch=b):
+                    for rec in recs:
+                        fh.write(rec.to_line() + "\n")
+                n += len(recs)
+                if n // 1000 > (n - len(recs)) // 1000:
+                    print(f"\r    {n} reads realigned "
+                          f"({n/(perf_counter()-start):.0f} reads/s)",
+                          end="", flush=True)
+        for e in realigner.errors:
+            print(f"WARNING: {e}")
+        for s in realigner.skipped:
+            print(f"WARNING: {s}")
+        if realigner.skipped:
+            print(f"    {len(realigner.skipped)} reads skipped (malformed)")
+        if realigner.bail_count:
+            print(f"    {realigner.bail_count} alignments used the golden "
+                  f"fallback")
+        print(f"\r    {n} reads realigned; runtime: "
+              f"{perf_counter()-start:.2f}s")
     if num_hosts > 1:
         barrier("realign-sam")
         if host_id == 0:

@@ -13,16 +13,22 @@ like a long read; ``--engine cuda`` (the default) needs a card.
 
 Usage: python -m npore_tpu_torch.cli.standardize_vcf --vcf in.vcf \
            --ref ref.fasta --out_prefix out [--stats_dir ./stats] [...]
+
+With ``NPORE_TIMING=1`` the tracer (``tracing``) records ``std.call``
+and under it ``std.split_vcf``, ``std.apply_vcf``, ``std.engine_init``,
+``std.realign`` (``std.submit``, ``std.collect``, ``std.normalize`` and
+the engine's spans) ``std.gen_vcf`` and ``std.merge``, and the CLI prints
+two ``[timing]`` lines from them.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 import sys
 from time import perf_counter
 from typing import List
 
+from .. import tracing
 from ..config import AlignConfig
 from ..constants import bases_to_int
 from ..engine.realigner import ENGINES, AlignItem, Realigner
@@ -96,36 +102,40 @@ def realign_haps(hap_data, realigner: Realigner, timing: bool = False,
     """Batched replacement of the reference's per-hap worker
     (reference: src/bam.pyx:93-123): align -> left-normalize to fixpoint
     -> 'ID' -> 'M'. With ``timing`` (NPORE_TIMING=1), prints the
-    window-build/submit vs device-wait vs normalize split. ``done``, if
+    window-build/submit vs device-wait vs normalize split from the spans
+    ``std.submit``, ``std.collect`` and ``std.normalize``. ``done``, if
     given, receives the items and the CIGARs before normalization."""
     items = []
     for contig, hap, seq, ref, cigar in hap_data:
         items.append(AlignItem(bases_to_int(ref), bases_to_int(seq), cigar))
-    t0 = perf_counter()
     eng = realigner._engine
-    if eng is not None:
-        wait0 = eng.wait_s
-        collect = eng.align_batch_async(items)   # window build + submit
-        t1 = perf_counter()
-        submit_wait = eng.wait_s - wait0         # groups collected early
-        new_cigars = collect()                   # device wait + decode
-    else:
-        t1 = perf_counter()
-        submit_wait = 0.0
-        new_cigars = realigner.align_batch(items)
-    t2 = perf_counter()
+    with tracing.span("std.submit"):
+        submit = tracing.context()
+        if eng is not None:
+            collect = eng.align_batch_async(items)   # window build + submit
+        else:
+            collect = lambda: realigner.align_batch(items)
+    with tracing.span("std.collect"):
+        new_cigars = collect()                       # device wait + decode
     out = []
-    for (contig, hap, seq, ref, _), it, cig in zip(hap_data, items,
-                                                   new_cigars):
-        norm = normalize_cigar(cig, it.ref, it.seq)
-        out.append((contig, hap, seq, ref, norm))
+    with tracing.span("std.normalize"):
+        for (contig, hap, seq, ref, _), it, cig in zip(hap_data, items,
+                                                       new_cigars):
+            norm = normalize_cigar(cig, it.ref, it.seq)
+            out.append((contig, hap, seq, ref, norm))
     if done is not None:
         done.items, done.cigars = items, new_cigars
-    if timing:
-        print(f"    [timing] window-build+submit {t1 - t0:.2f}s "
-              f"(device-wait {submit_wait:.2f}s of it)  "
-              f"device-wait+decode {t2 - t1:.2f}s  "
-              f"normalize {perf_counter() - t2:.2f}s", flush=True)
+    if timing and submit is not None:
+        # groups collected early, while submitting
+        submit_wait = sum(s.t1 - s.t0 for s in tracing.read()["spans"]
+                          if s.name == "engine.collect"
+                          and s.parent == submit.span)
+        ns = tracing.totals(submit.call)
+        print(f"    [timing] window-build+submit "
+              f"{ns['std.submit'] / 1e9:.2f}s "
+              f"(device-wait {submit_wait / 1e9:.2f}s of it)  "
+              f"device-wait+decode {ns['std.collect'] / 1e9:.2f}s  "
+              f"normalize {ns['std.normalize'] / 1e9:.2f}s", flush=True)
     return out
 
 
@@ -138,6 +148,24 @@ def run(argv=None, done: Realigned = None) -> Realigner:
     """The CLI's work; returns the Realigner that realigned the haplotypes.
     ``done``: as in ``realign_haps``."""
     args = argparser().parse_args(argv)
+    timing = tracing.set_from_env()
+    with tracing.span("std.call"):
+        call = tracing.context()
+        realigner = _run(args, timing, done)
+    if timing:
+        ns = tracing.totals(call.call)
+        split = "  ".join(f"{name} {ns[f'std.{name}'] / 1e9:.2f}s"
+                          for name in STAGES)
+        print(f"    [timing] {split}", flush=True)
+    return realigner
+
+
+# the spans of run's [timing] line, in order
+STAGES = ("split_vcf", "apply_vcf", "engine_init", "realign", "gen_vcf",
+          "merge")
+
+
+def _run(args, timing: bool, done: Realigned) -> Realigner:
     cfg = AlignConfig(max_n=args.max_n, max_l=args.max_l)
 
     print("> selecting vcf regions")
@@ -150,47 +178,38 @@ def run(argv=None, done: Realigned = None) -> Realigner:
     sub_scores, np_scores, _, _ = calc_score_matrices(
         subs, nps, inss, dels, cfg.max_n, cfg.max_l)
 
-    # NPORE_TIMING=1 prints the per-stage wall-clock split (VERDICT r4
-    # #4: the genome-scale standardize run was slow and unattributed)
-    timing = os.environ.get("NPORE_TIMING") == "1"
-    marks = [("start", perf_counter())]
+    with tracing.span("std.split_vcf"):
+        print("> splitting vcf")
+        vcf1, vcf2 = split_vcf(args.vcf, regions, args.out_prefix + "pre")
 
-    print("> splitting vcf")
-    vcf1, vcf2 = split_vcf(args.vcf, regions, args.out_prefix + "pre")
-    marks.append(("split_vcf", perf_counter()))
-
-    print("> converting vcfs and ref to sequences")
-    get_ref = lambda ctg: ref_fa.fetch(ctg).upper()
-    hap1_data = apply_vcf(vcf1, 1, regions, get_ref, args.min_qual)
-    hap2_data = apply_vcf(vcf2, 2, regions, get_ref, args.min_qual)
-    marks.append(("apply_vcf", perf_counter()))
+    with tracing.span("std.apply_vcf"):
+        print("> converting vcfs and ref to sequences")
+        get_ref = lambda ctg: ref_fa.fetch(ctg).upper()
+        hap1_data = apply_vcf(vcf1, 1, regions, get_ref, args.min_qual)
+        hap2_data = apply_vcf(vcf2, 2, regions, get_ref, args.min_qual)
 
     print("> realigning hap sequences")
     start = perf_counter()
-    realigner = Realigner(sub_scores, np_scores, cfg, engine=args.engine)
-    marks.append(("engine_init", perf_counter()))
-    data = realign_haps(hap1_data + hap2_data, realigner, timing=timing,
-                        done=done)
-    hap1_data = [x for x in data if x[1] == 1]
-    hap2_data = [x for x in data if x[1] == 2]
-    print(f"    {len(data)} sequences realigned; "
-          f"runtime: {perf_counter()-start:.2f}s")
-    marks.append(("realign", perf_counter()))
+    with tracing.span("std.engine_init"):
+        realigner = Realigner(sub_scores, np_scores, cfg, engine=args.engine)
+    with tracing.span("std.realign"):
+        data = realign_haps(hap1_data + hap2_data, realigner, timing=timing,
+                            done=done)
+        hap1_data = [x for x in data if x[1] == 1]
+        hap2_data = [x for x in data if x[1] == 2]
+        print(f"    {len(data)} sequences realigned; "
+              f"runtime: {perf_counter()-start:.2f}s")
 
-    print("> generating standardized vcfs")
-    vcf1 = gen_vcf(hap1_data, 1, args.out_prefix)
-    vcf2 = gen_vcf(hap2_data, 2, args.out_prefix)
-    marks.append(("gen_vcf", perf_counter()))
+    with tracing.span("std.gen_vcf"):
+        print("> generating standardized vcfs")
+        vcf1 = gen_vcf(hap1_data, 1, args.out_prefix)
+        vcf2 = gen_vcf(hap2_data, 2, args.out_prefix)
 
-    print("> merging vcfs")
-    out_fn = f"{args.out_prefix}.vcf.gz"
-    merge_vcfs(vcf1, vcf2, out_fn, regions)
-    print(f"    wrote {out_fn} (+ .tbi)")
-    marks.append(("merge", perf_counter()))
-    if timing:
-        split = "  ".join(f"{name} {t1 - t0:.2f}s" for (_, t0), (name, t1)
-                          in zip(marks, marks[1:]))
-        print(f"    [timing] {split}", flush=True)
+    with tracing.span("std.merge"):
+        print("> merging vcfs")
+        out_fn = f"{args.out_prefix}.vcf.gz"
+        merge_vcfs(vcf1, vcf2, out_fn, regions)
+        print(f"    wrote {out_fn} (+ .tbi)")
     return realigner
 
 

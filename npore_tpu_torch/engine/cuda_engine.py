@@ -31,6 +31,13 @@ group the rank's one card (``parallel.distributed.local_devices``).
 ``GROUPS_IN_FLIGHT`` holds per device; ``windows``, ``groups`` and
 ``wait_s`` count for the whole engine.
 
+With the tracer on (``tracing``), a batch's window build is the span
+``engine.windows``, each group's fill, copy and launches ``engine.submit``
+and its wait on the device ``engine.collect`` (the same clock pair as
+``wait_s``), both with the group's index, and the golden fallback
+``engine.golden``; the counter ``engine.h2d_bytes`` adds up the buffer
+prefixes copied to the devices.
+
 Bailed alignments (a traceback error; K1 itself never bails) are redone
 with the exact golden aligner, as PallasEngine does. That fallback is the
 algorithm's exact path, not a device fallback, and counts in
@@ -43,7 +50,7 @@ from __future__ import annotations
 import itertools
 import threading
 from collections import deque
-from time import perf_counter
+from time import perf_counter_ns
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +58,7 @@ import torch
 
 from ..config import AlignConfig
 from ..device import resolve_device
+from .. import tracing
 from ..ops import dp_cuda, npinfo_cuda, tb_cuda
 from ..ops.band_dp import check_band, pack_planes, window_dp
 from ..ops.tables import tables_from_numpy
@@ -108,10 +116,11 @@ class CudaEngine:
         """Enqueue a batch; returns a zero-arg collector of its CIGARs."""
         items = list(items)
         windows: List[Window] = []
-        for i, it in enumerate(items):
-            windows.extend(build_windows(it.ref, it.seq, it.cigar, self.cfg,
-                                         aln_idx=i))
-        windows.sort(key=lambda w: w.b_rows)
+        with tracing.span("engine.windows"):
+            for i, it in enumerate(items):
+                windows.extend(build_windows(it.ref, it.seq, it.cigar,
+                                             self.cfg, aln_idx=i))
+            windows.sort(key=lambda w: w.b_rows)
         self.windows += len(windows)
         done, pending = [], deque()
         for g in self._groups(windows):
@@ -135,7 +144,14 @@ class CudaEngine:
 
     def _submit(self, group: Sequence[Window]):
         """Enqueue ``group`` on the next device of the round-robin: the
-        host fills the buffer's prefix, the device its n-polymer planes."""
+        host fills the buffer's prefix, the device its n-polymer planes.
+        The handle ends with the group's index in the engine."""
+        index = self.groups
+        with tracing.span("engine.submit", group=index):
+            return self._enqueue(group) + (index,)
+
+    def _enqueue(self, group: Sequence[Window]):
+        """(result, L, done event) of ``group``."""
         cfg = self.cfg
         dev = next(self._next_device)
         tables = self._tables[dev]
@@ -147,6 +163,7 @@ class CudaEngine:
             head = fill_group(group, R, cfg.max_n)
             buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
             buf[:len(head)] = torch.from_numpy(head)
+            tracing.count("engine.h2d_bytes", len(head))
             return self._run(tensor_views(buf, layout), L,
                              tables).buf.cpu(), L, None
         host = torch.empty(prefix_nbytes(layout), dtype=torch.uint8,
@@ -162,6 +179,7 @@ class CudaEngine:
             res.copy_(out.buf, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
+        tracing.count("engine.h2d_bytes", host.numel())
         return res, L, done
 
     def _run(self, batch, L: int, tables):
@@ -178,12 +196,14 @@ class CudaEngine:
 
     def _collect(self, group: Sequence[Window], handle):
         """The group's windows with their (CIGAR, bail) pairs."""
-        res, L, done = handle
+        res, L, done, index = handle
+        t0 = perf_counter_ns()
         if done is not None:
-            t0 = perf_counter()
             done.synchronize()
-            with self._wait_lock:
-                self.wait_s += perf_counter() - t0
+        t1 = perf_counter_ns()
+        tracing.record("engine.collect", t0, t1, group=index)
+        with self._wait_lock:
+            self.wait_s += (t1 - t0) / 1e9
         B = len(group)
         raw = res.numpy()
         meta = raw[:8 * B].view(np.int32).reshape(B, 2)
@@ -204,20 +224,23 @@ class CudaEngine:
 
         # golden fallback for bailed alignments; prefers the native C++
         # port (bit-exact, ~14x the python spec)
-        for i in sorted(bailed):
-            self.bail_count += 1
-            it = items[i]
-            from ..native import golden_align_native
-            full = golden_align_native(it.ref, it.seq, it.cigar,
-                                       self.sub_scores, self.np_scores, cfg)
-            if full is None:
-                from ..golden.align import align as golden_align
-                full = golden_align(it.ref, it.seq, it.cigar,
-                                    self.sub_scores, self.np_scores, cfg)
-            # golden returns the whole alignment: replace its chunks
-            for w in build_windows(it.ref, it.seq, it.cigar, cfg, aln_idx=i):
-                chunk_cigars.pop(w.key, None)
-            chunk_cigars[(i, 0)] = full
+        with tracing.span("engine.golden"):
+            for i in sorted(bailed):
+                self.bail_count += 1
+                it = items[i]
+                from ..native import golden_align_native
+                full = golden_align_native(it.ref, it.seq, it.cigar,
+                                           self.sub_scores, self.np_scores,
+                                           cfg)
+                if full is None:
+                    from ..golden.align import align as golden_align
+                    full = golden_align(it.ref, it.seq, it.cigar,
+                                        self.sub_scores, self.np_scores, cfg)
+                # golden returns the whole alignment: replace its chunks
+                for w in build_windows(it.ref, it.seq, it.cigar, cfg,
+                                       aln_idx=i):
+                    chunk_cigars.pop(w.key, None)
+                chunk_cigars[(i, 0)] = full
 
         out = []
         for i in range(len(items)):

@@ -14,10 +14,13 @@ default) and ``golden`` (the executable spec, on the host).
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Sequence
+import itertools
+from time import perf_counter_ns
+from typing import Iterable, List, Sequence, Tuple
 
 import numpy as np
 
+from .. import tracing
 from ..config import AlignConfig
 from ..constants import bases_to_int
 from ..io.cigar import expand_cigar, finalize_cigar
@@ -73,107 +76,109 @@ class Realigner:
                         prefetch: int = 2) -> Iterable[SamRecord]:
         """Full read pipeline (reference: src/bam.pyx:51-89): strip clips,
         realign, left-normalize to fixpoint, emit the new SAM record with
-        preserved identity fields and an HP tag.
+        preserved identity fields and an HP tag. The records of
+        ``realign_batches``, one by one."""
+        for _, records in self.realign_batches(reads, batch_size, prefetch):
+            yield from records
 
-        Three host stages on dedicated threads, so the main thread only
-        yields ready records:
+    def realign_batches(self, reads: Iterable[SamRecord],
+                        batch_size: int = 128, prefetch: int = 2
+                        ) -> Iterable[Tuple[int, List[SamRecord]]]:
+        """(batch index, records) of each batch of ``batch_size`` reads, in
+        order. Three host stages on dedicated threads, so the main thread
+        only yields ready batches:
 
             producer: stream/decode reads into batches
             stage A : prep + window building + async device dispatch
             stage B : device collect + CIGAR finalize + SAM assembly
+
+        With ``NPORE_TIMING=1`` the tracer records a batch's
+        ``pipeline.decode`` (producer), ``pipeline.stage_a`` and
+        ``pipeline.stage_b`` (with ``pipeline.finalize`` and
+        ``pipeline.sam_build``), and the main thread's
+        ``pipeline.decode_wait`` and ``pipeline.main_wait``, all under the
+        context of the caller's open span (or a call of their own), and
+        prints the per-read ``[timing]`` line from them.
         """
-        import os
         import queue
         import threading
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
-        from time import perf_counter
 
-        timing = os.environ.get("NPORE_TIMING") == "1"
-        t_sub = [0.0]           # stage-A thread: prep + window build + submit
-        t_coll = [0.0]          # stage-B thread: device-result wait
-        t_emit = [0.0]          # stage-B thread: finalize + SAM assembly
-        t_wait = t_main = 0.0   # main thread: decode wait / pipeline wait
+        timing = tracing.set_from_env()
+        ctx = tracing.context()
+        since = perf_counter_ns()
         n_done = 0
 
         q: "queue.Queue" = queue.Queue(maxsize=max(1, prefetch))
 
         def producer():
-            batch: List[SamRecord] = []
+            it = iter(reads)
             try:
-                for read in reads:
-                    batch.append(read)
-                    if len(batch) >= batch_size:
-                        q.put(batch)
-                        batch = []
-                if batch:
+                for b in itertools.count():
+                    with tracing.span("pipeline.decode", batch=b,
+                                      parent=ctx):
+                        batch = list(itertools.islice(it, batch_size))
+                    if not batch:
+                        break
                     q.put(batch)
                 q.put(None)
             except BaseException as e:       # surface in the consumer
                 q.put(e)
 
-        def stage_a(batch):
-            t0 = perf_counter()
-            items, meta = self._prep_batch(batch)
-            if self._engine is not None:
-                collect = self._engine.align_batch_async(items)
-            else:
-                collect = (lambda its: lambda: self.align_batch(its))(items)
-            t_sub[0] += perf_counter() - t0
+        def stage_a(b, batch):
+            with tracing.span("pipeline.stage_a", batch=b, parent=ctx):
+                items, meta = self._prep_batch(batch)
+                if self._engine is not None:
+                    collect = self._engine.align_batch_async(items)
+                else:
+                    collect = (lambda its: lambda: self.align_batch(its))(
+                        items)
             return meta, collect
 
-        def stage_b(fut_a):
+        def stage_b(b, fut_a):
             meta, collect = fut_a.result()
-            c_acc = [0.0]
+            with tracing.span("pipeline.stage_b", batch=b, parent=ctx):
+                return self._finalize_records(meta, collect())
 
-            def timed_collect():
-                c0 = perf_counter()
-                res = collect()
-                c_acc[0] += perf_counter() - c0
-                return res
-            t0 = perf_counter()
-            out = list(self._finalize_records(meta, timed_collect()))
-            t_coll[0] += c_acc[0]
-            t_emit[0] += perf_counter() - t0 - c_acc[0]
-            return out
+        def wait(name, b, get):
+            with tracing.span(name, batch=b, parent=ctx):
+                return get()
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, daemon=True,
+                             name="npore-decode")
         t.start()
-        ex_a = ThreadPoolExecutor(1)
-        ex_b = ThreadPoolExecutor(1)
+        ex_a = ThreadPoolExecutor(1, thread_name_prefix="npore-stage-a")
+        ex_b = ThreadPoolExecutor(1, thread_name_prefix="npore-stage-b")
         inflight: deque = deque()
         try:
-            while True:
-                t0 = perf_counter()
-                item = q.get()
-                t_wait += perf_counter() - t0
+            for b in itertools.count():
+                item = wait("pipeline.decode_wait", b, q.get)
                 if item is None:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                inflight.append(ex_b.submit(stage_b,
-                                            ex_a.submit(stage_a, item)))
+                inflight.append((b, ex_b.submit(
+                    stage_b, b, ex_a.submit(stage_a, b, item))))
                 while len(inflight) > 2:
-                    t0 = perf_counter()
-                    out = inflight.popleft().result()
-                    t_main += perf_counter() - t0
+                    k, fut = inflight.popleft()
+                    out = wait("pipeline.main_wait", k, fut.result)
                     n_done += len(out)
-                    yield from out
+                    yield k, out
             while inflight:
-                t0 = perf_counter()
-                out = inflight.popleft().result()
-                t_main += perf_counter() - t0
+                k, fut = inflight.popleft()
+                out = wait("pipeline.main_wait", k, fut.result)
                 n_done += len(out)
-                yield from out
+                yield k, out
             t.join()
         finally:
-            for f in inflight:
+            for _, f in inflight:
                 f.cancel()
             # cancel_futures drops queued stage tasks so an aborted run
             # cannot dispatch device work nobody will collect
             ex_a.shutdown(wait=False, cancel_futures=True)
             ex_b.shutdown(wait=False, cancel_futures=True)
-            for f in inflight:
+            for _, f in inflight:
                 if not f.cancelled():
                     exc = None
                     try:
@@ -183,12 +188,28 @@ class Realigner:
                     if exc is not None:
                         self.errors.append(f"pipeline abort: {exc!r}")
         if timing and n_done:
-            us = 1e6 / n_done
-            print(f"    [timing] per read: submit {t_sub[0]*us:.0f}us, "
-                  f"collect-wait {t_coll[0]*us:.0f}us, "
-                  f"finalize+emit {t_emit[0]*us:.0f}us, "
-                  f"decode-wait {t_wait*us:.0f}us, "
-                  f"main-wait {t_main*us:.0f}us", flush=True)
+            self._print_timing(ctx.call, since, n_done)
+
+    @staticmethod
+    def _print_timing(call: int, since: int, n_done: int) -> None:
+        """The per-read µs of each stage of a pipeline run, from its
+        spans: submit is stage A, collect-wait the engine's waits on the
+        device within stage B, finalize+emit the rest of stage B."""
+        spans = [s for s in tracing.read()["spans"]
+                 if s.call == call and s.t0 >= since]
+        stage_b = {s.id for s in spans if s.name == "pipeline.stage_b"}
+        ns = tracing.totals(call, since)
+        coll = sum(s.t1 - s.t0 for s in spans
+                   if s.name == "engine.collect" and s.parent in stage_b)
+        us = 1e-3 / n_done
+        print(f"    [timing] per read: "
+              f"submit {ns.get('pipeline.stage_a', 0) * us:.0f}us, "
+              f"collect-wait {coll * us:.0f}us, "
+              f"finalize+emit "
+              f"{(ns.get('pipeline.stage_b', 0) - coll) * us:.0f}us, "
+              f"decode-wait {ns.get('pipeline.decode_wait', 0) * us:.0f}us, "
+              f"main-wait {ns.get('pipeline.main_wait', 0) * us:.0f}us",
+              flush=True)
 
     def _prep_batch(self, reads: List[SamRecord]):
         items = []
@@ -213,24 +234,28 @@ class Realigner:
             meta.append((read, int_ref, int_seq))
         return items, meta
 
-    def _finalize_records(self, meta, new_cigars) -> Iterable[SamRecord]:
+    def _finalize_records(self, meta, new_cigars) -> List[SamRecord]:
         # batched C++ finalization: one FFI call for the whole batch; falls
         # back per read without a compiler
         from ..native import finalize_cigar_batch
-        new_cigars = list(new_cigars)
-        finals = finalize_cigar_batch(
-            new_cigars, [m_[1] for m_ in meta], [m_[2] for m_ in meta])
-        if finals is None:
-            finals = [finalize_cigar(c, m_[1], m_[2])
-                      for c, m_ in zip(new_cigars, meta)]
-        for (read, int_ref, int_seq), norm in zip(meta, finals):
-            hap = int(read.get_tag("HP")) if read.has_tag("HP") else 0
-            # output line fields per reference (src/bam.pyx:83); tlen is
-            # the aligned reference span, len(int_ref)
-            yield SamRecord(
-                qname=read.qname, flag=read.flag, rname=read.rname,
-                pos=read.pos, mapq=read.mapq, cigar=norm,
-                rnext="*", pnext=0, tlen=len(int_ref),
-                seq=read.query_alignment_sequence.upper(),
-                qual=read.query_alignment_qualities_str,
-                tags={"HP": ("i", hap)})
+        with tracing.span("pipeline.finalize"):
+            new_cigars = list(new_cigars)
+            finals = finalize_cigar_batch(
+                new_cigars, [m_[1] for m_ in meta], [m_[2] for m_ in meta])
+            if finals is None:
+                finals = [finalize_cigar(c, m_[1], m_[2])
+                          for c, m_ in zip(new_cigars, meta)]
+        out = []
+        with tracing.span("pipeline.sam_build"):
+            for (read, int_ref, int_seq), norm in zip(meta, finals):
+                hap = int(read.get_tag("HP")) if read.has_tag("HP") else 0
+                # output line fields per reference (src/bam.pyx:83); tlen
+                # is the aligned reference span, len(int_ref)
+                out.append(SamRecord(
+                    qname=read.qname, flag=read.flag, rname=read.rname,
+                    pos=read.pos, mapq=read.mapq, cigar=norm,
+                    rnext="*", pnext=0, tlen=len(int_ref),
+                    seq=read.query_alignment_sequence.upper(),
+                    qual=read.query_alignment_qualities_str,
+                    tags={"HP": ("i", hap)}))
+        return out

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
+from .. import tracing
 from ..config import RealignConfig
 from ..io.fasta import FastaFile
 
@@ -50,8 +51,11 @@ def get_bam_regions(cfg: RealignConfig, ref: FastaFile,
         for ctg, l in zip(bam.references, bam.lengths):
             if ctg not in ref:
                 print(f"WARNING: contig '{ctg}' in BAM but not FASTA, skipping")
-            elif bam.count(ctg, 0, l - 1):
-                out.append((ctg, 0, l - 1))
+            else:
+                with tracing.span("regions.count"):
+                    n = bam.count(ctg, 0, l - 1)
+                if n:
+                    out.append((ctg, 0, l - 1))
     else:
         for ctg, l in zip(ref.references, ref.lengths):
             out.append((ctg, 0, l - 1))

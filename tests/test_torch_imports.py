@@ -20,6 +20,7 @@ MODULES = [
     "npore_tpu_torch.config",
     "npore_tpu_torch.constants",
     "npore_tpu_torch.device",
+    "npore_tpu_torch.tracing",
     "npore_tpu_torch.native",
     "npore_tpu_torch.io.cigar",
     "npore_tpu_torch.io.sam",
