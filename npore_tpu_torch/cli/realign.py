@@ -11,7 +11,8 @@ The ranks talk over gloo (``parallel/distributed.py``).
 
 With ``NPORE_TIMING=1`` the tracer (``tracing``) records the call's
 spans: ``realign.call`` and, under it, ``realign.fasta``,
-``realign.region_count`` (one ``regions.count`` a contig),
+``realign.region_count`` (one ``regions.count`` a contig where the
+call shards or trains: ``select_regions``),
 ``realign.tables``, ``realign.header`` and ``realign.stage`` (the printed
 ``runtime:``), which holds ``realign.engine_init``, one
 ``realign.sam_write`` a batch and the pipeline's spans
@@ -25,13 +26,13 @@ import os
 import sys
 import time
 from time import perf_counter, perf_counter_ns
-from typing import Optional
+from typing import List, Optional
 
 from .. import __version__, tracing
 from ..config import AlignConfig, RealignConfig
 from ..engine.bam_stream import SortedBamReader, confusion_counts, file_order
 from ..engine.realigner import ENGINES, Realigner
-from ..engine.regions import get_bam_regions
+from ..engine.regions import Region, get_bam_regions
 from ..io.bam import open_alignment_file
 from ..io.bam_native import native_available
 from ..io.fasta import FastaFile
@@ -120,6 +121,28 @@ def open_bam(path: str, prep: bool = True, skip_flags: int = 0):
     return open_alignment_file(path, prep)
 
 
+def select_regions(cfg: RealignConfig, ref_fa: FastaFile, bam,
+                   count: bool) -> List[Region]:
+    """``engine.regions.get_bam_regions``'s regions, whose default (no
+    ``--contig``, ``--contigs`` or ``--bed``) is every BAM contig the
+    FASTA holds that has reads: a count that decodes the whole BAM. Only
+    the rank split and the training use that list (``count``). Without
+    ``count`` the default is every such contig, with reads or not, from
+    the header alone and in its order: the stage's fetch of a contig
+    without reads yields nothing, and the sorted reader reads on from one
+    contig to the next, so the call writes the same records."""
+    if count or cfg.contig or cfg.contigs or cfg.bed or cfg.contig_beg \
+            or cfg.contig_end:
+        return get_bam_regions(cfg, ref_fa, bam)
+    out = []
+    for ctg, l in zip(bam.references, bam.lengths):
+        if ctg not in ref_fa:
+            print(f"WARNING: contig '{ctg}' in BAM but not FASTA, skipping")
+        else:
+            out.append((ctg, 0, l - 1))
+    return out
+
+
 def get_read_data(bam, regions, max_reads: int = 0):
     """Stream primary mapped reads in the selected regions
     (reference: src/bam.pyx:18-47)."""
@@ -188,13 +211,17 @@ def _profiled(profile_dir: Optional[str], engine: str):
 
 def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
     cfg = config_from_args(args)
+    # auto-recalculate stats when any matrix is missing (src/realign.py:124-128)
+    train = cfg.recalc_cms or not all(
+        os.path.isfile(os.path.join(cfg.stats_dir, f"{n}_cm.npy"))
+        for n in ("subs", "nps", "inss", "dels"))
 
     print("> selecting BAM regions")
     with tracing.span("realign.fasta"):
         ref_fa = FastaFile(cfg.ref)
     with tracing.span("realign.region_count"):
         bam = open_bam(cfg.bam, prep=False)     # the count needs no prep
-        regions = get_bam_regions(cfg, ref_fa, bam)
+        regions = select_regions(cfg, ref_fa, bam, num_hosts > 1 or train)
     stripe = False
     if num_hosts > 1:
         if len(regions) >= num_hosts:
@@ -209,10 +236,7 @@ def _run(args, host_id: int, num_hosts: int) -> Optional[Realigner]:
                   f"({len(regions)} regions < {num_hosts} hosts)")
 
     tables_t0 = perf_counter_ns()
-    # auto-recalculate stats when any matrix is missing (src/realign.py:124-128)
-    have_all = all(os.path.isfile(os.path.join(cfg.stats_dir, f"{n}_cm.npy"))
-                   for n in ("subs", "nps", "inss", "dels"))
-    if cfg.recalc_cms or not have_all:
+    if train:
         print("> calculating confusion matrices")
         # stats must shard by REGION even in read-stripe mode: each count
         # contributes once globally or the allreduce multiplies every

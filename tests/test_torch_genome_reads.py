@@ -33,6 +33,7 @@ from npore_tpu_torch.io.cigar import finalize_cigar
 from npore_tpu_torch.io.sam import SamRecord
 from npore_tpu_torch.native import golden_align_native
 from npore_tpu_torch.ops import npinfo_cuda
+from npore_tpu_torch.parallel.distributed import host_out_path, shard_regions
 from npore_tpu_torch.scripts import multihost_scaling as mh
 from npore_tpu_torch.testing import chunks, genome_reads as gr
 
@@ -403,9 +404,56 @@ def test_cli_records_carry_the_input(genome, port_cli, score_matrices):
                      r.aligned_seq, r.aligned_qual, f"HP:i:{hp}"], r.qname
 
 
+def _counted_regions(written, stats_dir):
+    """The regions ``engine.regions.get_bam_regions`` keeps, counting the
+    reads of each contig, for a default call on ``written``."""
+    from npore_tpu_torch.engine.regions import get_bam_regions
+    from npore_tpu_torch.io.fasta import FastaFile
+    cfg = cli.config_from_args(cli.argparser().parse_args(
+        ["--bam", written[1], "--ref", written[0], "--out_prefix", "x",
+         "--stats_dir", stats_dir]))
+    return cfg, get_bam_regions(cfg, FastaFile(cfg.ref),
+                                cli.open_bam(cfg.bam, prep=False))
+
+
+def test_header_regions_write_the_counted_regions_sam(written, port_cli,
+                                                      tmp_path, stats_dir):
+    """A default single-rank call that loads its tables takes its regions
+    from the BAM's header, without counting reads: the FASTA's contigs
+    with reads and ``chrUn_1`` without. Its SAM is byte for byte that of
+    a call given, by --contigs, the contigs the count keeps, and it still
+    warns of the decoy contig."""
+    import contextlib
+    import io
+    from npore_tpu_torch.io.fasta import FastaFile
+    cfg, counted = _counted_regions(written, stats_dir)
+    with_reads = [name for name, _ in LAYOUT.contigs]
+    assert [c for c, _, _ in counted] == with_reads
+    header = cli.select_regions(cfg, FastaFile(cfg.ref),
+                                cli.open_bam(cfg.bam, prep=False), False)
+    assert [c for c, _, _ in header] == with_reads + [LAYOUT.unplaced[0]]
+    assert header[:len(counted)] == counted
+    out = str(tmp_path / "contigs")
+    argv = sys.argv
+    sys.argv = ARGV0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.run(["--bam", written[1], "--ref", written[0],
+                     "--out_prefix", out, "--stats_dir", stats_dir,
+                     "--engine", "torch", "--contigs", ",".join(with_reads)])
+    finally:
+        sys.argv = argv
+    with open(port_cli[0], "rb") as a, open(out + ".sam", "rb") as b:
+        assert a.read() == b.read()
+    assert (f"WARNING: contig '{LAYOUT.decoy[0]}' in BAM but not FASTA, "
+            f"skipping") in _warnings(port_cli[1])
+
+
 def test_two_ranks_equal_one(written, port_cli, tmp_path, stats_dir):
     """The CLI as two ranks on gloo (five regions: region shards) writes
-    the one-rank SAM's records, merged."""
+    the one-rank SAM's records, merged. The ranks count the reads of each
+    contig, so each realigns its shard of the counted regions, which
+    leave out ``chrUn_1``."""
     pre = str(tmp_path / "two")
     row = mh.run_ranks(2, ["--bam", written[1], "--ref", written[0],
                            "--stats_dir", stats_dir, "--engine", "torch",
@@ -415,6 +463,15 @@ def test_two_ranks_equal_one(written, port_cli, tmp_path, stats_dir):
     assert all(r["reads"] > 0 for r in row["ranks"])
     assert row["reads"] == len(one)
     assert mh.records(pre + ".sam") == one
+    _, counted = _counted_regions(written, stats_dir)
+    assert len(counted) == len(LAYOUT.contigs)
+    for h in range(2):
+        shard = shard_regions(counted, 2, h)
+        with open(tmp_path / f"two.rank{h}.log") as fh:
+            assert f"host {h}/2: {len(shard)} region shards" in fh.read()
+        got = {r.split("\t")[2] for r in
+               mh.records(host_out_path(pre, h, 2)).values()}
+        assert got == {c for c, _, _ in shard}, h
 
 
 # -- reads across an assembly gap ------------------------------------------

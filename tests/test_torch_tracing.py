@@ -3,10 +3,13 @@ when ``NPORE_TIMING`` is off; on, one realign CLI call (``--engine
 torch``, the fixture BAM in batches of 4 reads) records every span of the
 CLI, the pipeline and the engine under one call id, nested and on the
 threads the pipeline runs them on; the ``[timing]`` lines are built from
-the spans; ``--profile_dir`` writes the spans into its trace."""
+the spans; ``--profile_dir`` writes the spans into its trace. Only a call
+that trains (or shards) counts the reads of each contig
+(``regions.count``)."""
 import json
 import os
 import re
+import shutil
 import sys
 import threading
 
@@ -22,7 +25,6 @@ torch.set_num_threads(2)
 PARENTS = {
     "realign.fasta": "realign.call",
     "realign.region_count": "realign.call",
-    "regions.count": "realign.region_count",
     "realign.tables": "realign.call",
     "realign.header": "realign.call",
     "realign.stage": "realign.call",
@@ -41,8 +43,8 @@ PARENTS = {
     "pipeline.sam_build": "pipeline.stage_b",
 }
 MAIN_THREAD = ("realign.call", "realign.fasta", "realign.region_count",
-               "regions.count", "realign.tables", "realign.header",
-               "realign.stage", "realign.engine_init", "realign.sam_write",
+               "realign.tables", "realign.header", "realign.stage",
+               "realign.engine_init", "realign.sam_write",
                "pipeline.decode_wait", "pipeline.main_wait")
 BATCH = 4
 
@@ -147,6 +149,47 @@ def test_threads(traced):
     assert {s.tid for s in by["pipeline.finalize"]} == \
         tids["pipeline.stage_b"]
     assert traced["threads"][main] == "MainThread"
+
+
+@pytest.mark.parametrize("why", ["recalc_cms", "missing_matrix"])
+def test_region_count_runs_where_the_call_trains(tmp_path, data_dir,
+                                                 stats_dir, monkeypatch,
+                                                 why):
+    """A call that trains (``--recalc_cms``, or a stats directory that
+    lacks a matrix) counts the reads of each BAM contig the FASTA holds:
+    one ``regions.count`` a contig, under ``realign.region_count`` on the
+    main thread. The call that loads its tables (``traced``) counts
+    none."""
+    from npore_tpu_torch.cli import realign
+    from npore_tpu_torch.io.fasta import FastaFile
+    new_stats = tmp_path / "stats"
+    new_stats.mkdir()
+    names = ("subs", "nps", "inss", "dels")
+    for n in names if why == "recalc_cms" else names[:-1]:
+        shutil.copy(os.path.join(stats_dir, f"{n}_cm.npy"), new_stats)
+    more = ["--recalc_exit"] + (["--recalc_cms"] if why == "recalc_cms"
+                                else [])
+    monkeypatch.setenv("NPORE_TIMING", "1")
+    tracing.reset()
+    argv = _argv(data_dir, str(new_stats), str(tmp_path / "o"), *more)
+    assert realign.run(argv) is None
+    by = _by_name(tracing.read()["spans"])
+    (call,), (select,) = by["realign.call"], by["realign.region_count"]
+    bam = realign.open_bam(os.path.join(data_dir, "reads.bam"), prep=False)
+    fa = FastaFile(os.path.join(data_dir, "ref.fasta"))
+    held = [c for c in bam.references if c in fa]
+    assert len(by["regions.count"]) == len(held) >= 1
+    for s in by["regions.count"]:
+        assert s.parent == select.id and s.tid == call.tid
+        assert select.t0 <= s.t0 <= s.t1 <= select.t1
+    assert sorted(os.listdir(new_stats)) == sorted(f"{n}_cm.npy"
+                                                   for n in names)
+
+
+def test_a_loading_call_counts_no_region(traced):
+    by = _by_name(traced["spans"])
+    assert len(by["realign.region_count"]) == 1
+    assert "regions.count" not in by
 
 
 def test_batch_ids_across_threads(traced):
